@@ -1,0 +1,129 @@
+"""StreamEngine: the serving path — fixed block size, ring states.
+
+The port of ``neuralampmodelercore_tpu.models.engine``. As the reference
+pre-allocates for a fixed maxBufferSize at Reset (NAM/dsp.cpp:130-140), the
+engine fixes the block size T at construction, keeps conv history in
+chunked-FIFO rings with O(T) traffic per block, and prepares its weights once.
+
+    engine = StreamEngine(model, batch=4096, block_size=64)
+    state = engine.reset()                    # zero state + prewarm
+    y, state = engine.process(x, state)       # x: (batch, block_size[, C])
+
+Kernel tiers:
+  - "fused": the hand-written CUDA stack kernel (ops/cuda/stack.py), one
+    launch per block; on a CPU model it runs the kernel's plain version;
+  - "torch": the per-op engine step (models/wavenet.py engine_step);
+  - "auto": "fused" when the model is on a CUDA device and the kernel's
+    ``supports`` passes, else "torch".
+
+Semantics are identical to Model.process at the same block size; only the
+state layout and traffic differ. A state passed to ``process`` is consumed
+(rings are written in place): continue with the returned one.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from .. import registry
+from .base import Model
+
+KERNELS = ("auto", "fused", "torch")
+
+
+class StreamEngine:
+    def __init__(self, model: Model, batch: int, block_size: int, kernel: str = "auto"):
+        if kernel not in KERNELS:
+            raise ValueError(f"kernel must be one of {'|'.join(KERNELS)}, got {kernel!r}")
+        self.model = model
+        self.batch = int(batch)
+        self.block_size = int(block_size)
+        self.device = model.device
+        use_fused = False
+        if kernel != "torch":
+            from ..ops.cuda import backend_for
+
+            try:
+                backend = backend_for(model.config)
+            except NotImplementedError:
+                if kernel == "fused":
+                    raise
+                backend = None
+            reason = (
+                backend.supports(model.config, self.block_size, self.batch)
+                if backend is not None
+                else "no kernel for this architecture"
+            )
+            if kernel == "fused":
+                if reason is not None:
+                    raise ValueError(f"fused kernel does not support this model: {reason}")
+                use_fused = True
+            else:
+                use_fused = reason is None and self.device.type == "cuda"
+        if use_fused:
+            self._prepare_fn, self._step_fn = backend.prepare, backend.step
+            self.kernel = "fused"
+        else:
+            self._prepare_fn, self._step_fn = registry.engine_fns(model._arch)
+            self.kernel = "torch"
+        # Engine-layout weights are built once, at construction.
+        self._eparams, _ = self._prepare_fn(model.config, model.params, self.block_size, self.batch)
+
+    @property
+    def params(self):
+        return self._eparams
+
+    def init_state(self) -> Any:
+        _, state = self._prepare_fn(self.model.config, self.model.params, self.block_size, self.batch)
+        return state
+
+    def step(self, state, x_ctb: torch.Tensor):
+        """Raw step in the engine's (C, T, B) layout: (state, x) -> (y, state')."""
+        with torch.no_grad():
+            return self._step_fn(self.model.config, self.block_size, self._eparams, state, x_ctb)
+
+    def prewarm_blocks(self) -> int:
+        """Zero blocks ``prewarm`` runs: ceil(prewarm samples / T). For the
+        feed-forward architectures ported so far the state is a function of
+        the last receptive-field inputs, so the (< T) zero samples beyond the
+        reference's exact count leave it at the same fixed point
+        (engine.py:137-168 of the JAX package)."""
+        n = self.model.get_prewarm_samples()
+        if registry.arch_for_config(self.model.config).recurrent:
+            raise NotImplementedError("exact remainder prewarm for recurrent models: ROADMAP Queue 1 item 7")
+        return -(-max(n, 0) // self.block_size)
+
+    def prewarm(self, state: Any) -> Any:
+        zeros = torch.zeros((self.model.num_input_channels, self.block_size, self.batch), device=self.device)
+        for _ in range(self.prewarm_blocks()):
+            _, state = self.step(state, zeros)
+        return state
+
+    def reset(self, prewarm: Optional[bool] = None) -> Any:
+        state = self.init_state()
+        if self.model.prewarm_on_reset if prewarm is None else prewarm:
+            state = self.prewarm(state)
+        return state
+
+    def process(self, x: Any, state: Any):
+        """Public boundary keeps the (B, T[, C]) convention; the transposes in
+        and out of the (C, T, B) layout happen here."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        x = x.to(device=self.device, dtype=torch.float32)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[..., None]
+        if x.shape[1] != self.block_size:
+            raise ValueError(
+                f"StreamEngine is specialised to block_size={self.block_size}; got {x.shape[1]} "
+                "frames (use Model.process for variable block sizes)"
+            )
+        y, state = self.step(state, x.permute(2, 1, 0).contiguous())
+        y = y.permute(2, 1, 0)
+        if squeeze and y.shape[-1] == 1:
+            y = y[..., 0]
+        return y, state

@@ -1,0 +1,249 @@
+"""The fused stack step of the port (ops/cuda/stack.py) against the JAX
+package's fused Pallas stack kernel and its XLA engine tier.
+
+On the CPU the port's wrapper runs the kernel's plain version (same step,
+same state layout, in torch); the JAX kernel runs in interpret mode, as the
+JAX package's own tests run it (tests/test_pallas_stack.py:25-29). B=128 is
+one lane tile, the JAX kernel's smallest batch. Tolerance 2e-5 absolute, the
+JAX package's tier-against-tier tolerance. The CUDA kernel itself is held
+against the plain version on the card by tests/test_torch_cuda.py."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import neuralampmodelercore_tpu as jnam
+import neuralampmodelercore_tpu_torch as tnam
+from neuralampmodelercore_tpu.models.engine import StreamEngine as JEngine
+from neuralampmodelercore_tpu.ops.pallas import stack as jstack
+from neuralampmodelercore_tpu.tools.generate import make_nam, wavenet_preset, with_condition_dsp
+from neuralampmodelercore_tpu_torch.ops import activations as tact
+from neuralampmodelercore_tpu_torch.ops.cuda import backend_for
+from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+
+B = 128
+ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    jstack.INTERPRET = True
+    yield
+    jstack.INTERPRET = False
+
+
+def splice_config(layer1x1=True):
+    lc = {
+        "input_size": 1, "condition_size": 1, "channels": 8, "head_size": 1, "kernel_size": 3,
+        "dilations": [3, 12, 28, 52], "activation": "Tanh", "gated": False, "head_bias": True,
+    }
+    if not layer1x1:
+        lc["layer1x1"] = {"active": False, "groups": 1}
+    return {"layers": [lc], "head": None}
+
+
+def _run(config, T, n_blocks, seed=7, tiers=("pallas", "xla")):
+    doc = make_nam("WaveNet", config, seed=seed)
+    jm = jnam.load_model(doc)
+    tm = tnam.load_model(doc, device="cpu")
+    jm.prewarm_on_reset = tm.prewarm_on_reset = False
+    x = (np.random.default_rng(seed).standard_normal((B, n_blocks * T)) * 0.3).astype(np.float32)
+    fe = tnam.StreamEngine(tm, batch=B, block_size=T, kernel="fused")
+    assert fe.kernel == "fused"
+    fs = fe.reset(prewarm=False)
+    jes = {k: JEngine(jm, batch=B, block_size=T, kernel=k) for k in tiers}
+    jss = {k: e.reset(prewarm=False) for k, e in jes.items()}
+    before = tstack.launches
+    for i in range(n_blocks):
+        blk = x[:, i * T : (i + 1) * T]
+        yt, fs = fe.process(blk, fs)
+        for k, e in jes.items():
+            yj, jss[k] = e.process(blk, jss[k])
+            np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=ATOL, err_msg=f"{k} block {i}")
+    assert tstack.launches == before  # CPU tensors never launch the kernel
+    return fe, fs
+
+
+def test_standard_T64():
+    _run(wavenet_preset("standard"), T=64, n_blocks=3)
+
+
+def test_standard_T16_ring_wrap():
+    """T=16: the deep dilations wrap their rings (M up to 66 slots)."""
+    _run(wavenet_preset("standard"), T=16, n_blocks=6, tiers=("xla",))
+
+
+def test_standard_T16_against_pallas():
+    _run(wavenet_preset("standard"), T=16, n_blocks=2, tiers=("pallas",))
+
+
+def test_offset_splice_dilations():
+    """Dilations not aligned to T: every deep tap window straddles two blocks."""
+    _run(splice_config(), T=16, n_blocks=10)
+
+
+def test_layer1x1_off():
+    _run(splice_config(layer1x1=False), T=16, n_blocks=8)
+
+
+def test_grouped_and_depthwise_weights():
+    """Depthwise conv and grouped layer1x1 are densified at prepare."""
+    config = splice_config()
+    config["layers"][0].update(channels=4, groups_input=4, layer1x1={"active": True, "groups": 2})
+    _run(config, T=16, n_blocks=4)
+
+
+def test_multi_channel_input_padding_and_activations():
+    """Two input channels, channel counts padded to the register tile (6 -> 8,
+    5 -> 8), mixed kernel sizes including k=1, and every kernel activation."""
+    acts = ["Tanh", "ReLU", "Sigmoid", "Hardtanh", {"type": "LeakyReLU", "negative_slope": 0.2},
+            "SiLU", "Softsign", "Hardswish", "Fasttanh",
+            {"type": "LeakyHardtanh", "min_val": -0.5, "max_val": 0.7, "min_slope": 0.1, "max_slope": 0.05},
+            {"type": "PReLU", "negative_slope": 0.3}]
+    config = {
+        "in_channels": 2,
+        "layers": [
+            {"input_size": 2, "condition_size": 2, "channels": 6, "head_size": 5,
+             "kernel_sizes": [2, 3, 4, 3, 2, 3, 3, 1, 3, 2, 3],
+             "dilations": [1, 3, 7, 16, 33, 64, 5, 1, 100, 9, 2],
+             "activation": acts, "gated": False, "head_bias": False},
+            {"input_size": 6, "condition_size": 2, "channels": 5, "head_size": 2, "kernel_size": 3,
+             "dilations": [2, 40], "activation": "Softsign", "layer1x1": {"active": False, "groups": 1},
+             "gated": False, "head_bias": True},
+        ],
+        "head": None,
+    }
+    doc = make_nam("WaveNet", config, seed=3)
+    jm, tm = jnam.load_model(doc), tnam.load_model(doc, device="cpu")
+    jm.prewarm_on_reset = tm.prewarm_on_reset = False
+    T, nb = 32, 6
+    x = (np.random.default_rng(3).standard_normal((B, nb * T, 2)) * 0.3).astype(np.float32)
+    yj, _ = jm.process(x, jm.reset(batch=B))
+    fe = tnam.StreamEngine(tm, batch=B, block_size=T, kernel="fused")
+    fs = fe.reset(prewarm=False)
+    ys = []
+    for i in range(nb):
+        y, fs = fe.process(x[:, i * T : (i + 1) * T], fs)
+        ys.append(y)
+    np.testing.assert_allclose(torch.cat(ys, dim=1).numpy(), np.asarray(yj), rtol=0, atol=ATOL)
+
+
+def test_ring_counter_wrap_soak():
+    """The block counter wraps at the LCM of the ring sizes: a state whose
+    counter sits just below int32 max (and = 0 mod the wrap) gives
+    bit-identical output to a fresh stream across the wrap, twice."""
+    doc = make_nam("WaveNet", splice_config(), seed=5)
+    tm = tnam.load_model(doc, device="cpu")
+    jm = jnam.load_model(doc)
+    T = 8
+    eng = tnam.StreamEngine(tm, batch=B, block_size=T, kernel="fused")
+    layout = eng.params["layout"]
+    wrap = 1
+    for lp in layout.layers:
+        if lp.M:
+            wrap = wrap * lp.M // math.gcd(wrap, lp.M)
+    assert layout.wrap == wrap > 1
+    s_ref = eng.reset(prewarm=False)
+    s_big = eng.reset(prewarm=False)
+    s_big["n"] = (2**31 - 1) // wrap * wrap
+    je = JEngine(jm, batch=B, block_size=T, kernel="xla")
+    js = je.reset(prewarm=False)
+    rng = np.random.default_rng(11)
+    for i in range(2 * wrap + 3):
+        blk = (rng.standard_normal((B, T)) * 0.3).astype(np.float32)
+        y1, s_ref = eng.process(blk, s_ref)
+        y2, s_big = eng.process(blk, s_big)
+        assert torch.equal(y1, y2), f"block {i}"
+        assert 0 <= s_big["n"] < wrap
+        if i < 6:
+            yj, js = je.process(blk, js)
+            np.testing.assert_allclose(y1.numpy(), np.asarray(yj), rtol=0, atol=ATOL)
+
+
+def _layer(**kw):
+    base = dict(input_size=1, condition_size=1, head_size=1, channels=4, kernel_size=3,
+                dilations=[1, 2], activation="Tanh", gated=False, head_bias=True)
+    base.update(kw)
+    return base
+
+
+REFUSED = {
+    "gated": ({"layers": [_layer(gated=True)], "head": None}, "K1b"),
+    "blended": ({"layers": [_layer(gating_mode="blended")], "head": None}, "K1b"),
+    "bottleneck": ({"layers": [_layer(channels=4, bottleneck=2)], "head": None}, "K1b"),
+    "head1x1": ({"layers": [_layer(head1x1={"active": True, "out_channels": 2, "groups": 1})], "head": None}, "K1b"),
+    "film": ({"layers": [_layer(conv_post_film={"active": True})], "head": None}, "K1c"),
+    "head_rechannel_k3": ({"layers": [_layer(head={"out_channels": 1, "kernel_size": 3, "bias": True})]}, "K1d"),
+    "post_head": ({"layers": [_layer(head_size=2)],
+                   "head": {"channels": 2, "out_channels": 1, "kernel_sizes": [1], "activation": "Tanh"}}, "K1d"),
+    "condition_dsp": (with_condition_dsp({"layers": [_layer()], "head": None},
+                                         make_nam("WaveNet", wavenet_preset("simple"), seed=1)), "K1e"),
+    "prelu_per_channel": ({"layers": [_layer(activation={"type": "PReLU", "negative_slopes": [0.1, 0.2]})],
+                           "head": None}, "per-channel PReLU"),
+    "wide": ({"layers": [_layer(channels=40)], "head": None}, "channels"),
+    "many_inputs": ({"in_channels": 5, "layers": [_layer(input_size=5, condition_size=5)], "head": None},
+                    "in_channels"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_supports_refuses_what_is_not_k1a(name):
+    config, why = REFUSED[name]
+    tm = tnam.load_model(make_nam("WaveNet", config, seed=0), device="cpu")
+    reason = tstack.supports(tm.config, 16, B)
+    assert reason is not None and why in reason
+    # auto takes the torch tier; fused raises.
+    assert tnam.StreamEngine(tm, batch=B, block_size=16).kernel == "torch"
+    with pytest.raises(ValueError, match="fused kernel does not support"):
+        tnam.StreamEngine(tm, batch=B, block_size=16, kernel="fused")
+
+
+@pytest.mark.parametrize("mode", ["fast_tanh", "lut"])
+def test_supports_refuses_fast_tanh_and_lut_modes(mode):
+    tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("simple"), seed=0), device="cpu")
+    assert tstack.supports(tm.config, 16, B) is None
+    eng = tnam.StreamEngine(tm, batch=B, block_size=16, kernel="fused")
+    state = eng.reset(prewarm=False)
+    if mode == "fast_tanh":
+        tact.enable_fast_tanh()
+    else:
+        tact.enable_lut("Tanh", -3.0, 3.0, 64)
+    try:
+        assert "K1f" in tstack.supports(tm.config, 16, B)
+        with pytest.raises(ValueError, match="fast-tanh / LUT"):
+            eng.process(np.zeros((B, 16), np.float32), state)
+    finally:
+        tact.disable_fast_tanh()
+        tact.disable_lut("Tanh")
+
+
+def test_supports_block_size_and_backend():
+    tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("standard"), seed=0), device="cpu")
+    assert backend_for(tm.config) is tstack
+    assert tstack.supports(tm.config, 64, 4096) is None
+    assert tstack.supports(tm.config, 64, 100) is None  # any batch: the ragged tile is masked
+    assert "block size" in tstack.supports(tm.config, 1024, B)
+    assert "WaveNetConfig" in tstack.supports(object(), 64, B)
+    with pytest.raises(NotImplementedError, match="K2"):
+        backend_for(object())
+
+
+def test_work_counts_for_the_bound():
+    """The flagship at T=64: 13,320 MACs per sample; about 98 KB of state and
+    I/O per stream and block."""
+    tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("standard"), seed=0), device="cpu")
+    w = tstack.work(tm.config, 64, 4096)
+    assert w["macs"] == 13320 * 64 * 4096
+    per_stream = (w["bytes"] - 4 * 13800) / 4096
+    assert 97_000 < per_stream < 99_000
+
+
+def test_wrapper_refuses_other_devices_and_bad_shapes():
+    tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("simple"), seed=0), device="cpu")
+    ep, st = tstack.prepare(tm.config, tm.params, 16, 4)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tstack.step(tm.config, 16, ep, st, torch.zeros(1, 16, 4, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tstack.launch(ep["layout"], ep["weights"], ep["plan"], st["buf"], torch.zeros(1, 16, 4), 0)

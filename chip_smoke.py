@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py [--out report.json]
 
-Phases (any failure raises and exits non-zero):
+It drives the port's three main paths, WaveNet, LSTM and ConvNet, each
+through load_model(.nam) -> StreamEngine(kernel="auto") -> its hand-written
+CUDA kernel. Phases (any failure raises and exits non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
-  2. build every kernel of the main path from the checkout's sources (nvcc,
-     sm_90a) and print the build time and ptxas's register / spill report;
+  2. build every kernel from the checkout's sources (one nvcc per source, all
+     started together, sm_90a) and print each build time and ptxas's
+     register / spill report;
   3. each kernel against its plain PyTorch version on the card, same inputs
-     from a seed, outputs and state to <= 2e-5 absolute: the flagship at
-     B=2048 T=64 over 8 blocks, the flagship at T=16 (deep dilations wrap the
-     rings), the offset-splice dilations, and a config that runs every
-     activation the kernel has;
-  4. the main path end to end: load_model(.nam) on the card, StreamEngine
-     with kernel="auto" (must pick "fused"), reset with prewarm, 32 blocks;
-     the kernel's launch count must equal prewarm blocks + 32, and the output
-     must be finite and within 2e-5 of the torch engine tier on the card;
-  5. per-block times with CUDA events after warm-up (kernel, plain version,
-     torch engine tier) and the real-time 48 kHz stream count;
+     from a seed, state carried, outputs and state to <= 2e-5 absolute:
+     stack (the flagship at T=64 and T=16, offset-splice dilations, every
+     activation), lstm (1 x 3, 2 x 16 at T=64, T=34 and a ragged B=1000,
+     H=5 with two outputs, fast-tanh mode), convnet (the amp ConvNet at
+     T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
+     groups=2, two in/out channels, a non-Tanh activation, dilations that
+     are not multiples of T);
+  4. each main path end to end at B=2048, T=64: load_model on the card,
+     StreamEngine with kernel="auto" (must pick "fused"), reset with prewarm,
+     32 blocks. Every launch counter is set to 0 just before the path and
+     read just after; the path's kernel must have run exactly prewarm + 32
+     times (the LSTM's prewarm is 344 full blocks and one 34-sample
+     remainder step), and the output must be finite and within 2e-5 of the
+     torch engine tier on the card;
+  5. per-block times with CUDA events after warm-up, printed beside the
+     card's name and power limit: the kernel (twice), its plain version, the
+     torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
+     the head product as the library yardstick; then a doubling sweep of the
+     kernel for the real-time 48 kHz stream count of each model;
   6. a {"kernels": [...]} line, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -32,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -40,6 +53,22 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 SAMPLE_RATE = 48000.0
 SEED = 1234
+B_MAIN, T_MAIN, N_BLOCKS = 2048, 64, 32
+
+LSTM_MAIN = {"input_size": 1, "hidden_size": 16, "num_layers": 2}  # tools/generate.py's LSTM
+AMP_CONVNET = {  # tests/test_pallas_convnet.py:63-70 of the JAX package
+    "channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512],
+    "batchnorm": True, "activation": "Tanh",
+}
+
+REPLACES = {
+    "stack_step": ("neuralampmodelercore_tpu/ops/pallas/stack.py:1769",
+                   "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a)"),
+    "lstm_step": ("neuralampmodelercore_tpu/ops/pallas/lstm.py:208",
+                  "neuralampmodelercore_tpu/ops/pallas/lstm.py _make_kernel (K2)"),
+    "convnet_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
+                     "neuralampmodelercore_tpu/ops/pallas/convnet.py _make_kernel (K3)"),
+}
 
 
 def log(*a):
@@ -102,13 +131,20 @@ def activations_config():
     }
 
 
-def compare_kernel_with_plain(nam, stack, make_nam, name, config, T, B, n_blocks, seed):
-    """Same model, same inputs, state carried: kernel vs plain version."""
-    model = nam.load_model(make_nam("WaveNet", config, seed=seed), device="cuda")
-    reason = stack.supports(model.config, T, B)
+def _check_err(name, err_y, err_s):
+    if not (err_y <= ATOL and err_s <= ATOL):
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version beyond {ATOL}")
+    return max(err_y, err_s)
+
+
+def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed):
+    """Same model, same inputs, state carried: a kernel with a flat ring-state
+    buffer (stack, convnet) vs its plain version."""
+    model = nam.load_model(make_nam(arch, config, seed=seed), device="cuda")
+    reason = mod.supports(model.config, T, B)
     if reason is not None:
         raise RuntimeError(f"{name}: kernel refuses the config: {reason}")
-    ep, sk = stack.prepare(model.config, model.params, T, B)
+    ep, sk = mod.prepare(model.config, model.params, T, B)
     layout = ep["layout"]
     buf_plain = sk["buf"].clone()
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -116,18 +152,44 @@ def compare_kernel_with_plain(nam, stack, make_nam, name, config, T, B, n_blocks
     for i in range(n_blocks):
         x = randn((layout.Cin, T, B), gen)
         n = sk["n"]
-        yk, sk = stack.step(model.config, T, ep, sk, x)
-        yp = stack.step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap)
+        yk, sk = mod.step(model.config, T, ep, sk, x)
+        yp = mod.step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap)
         torch.cuda.synchronize()
         err_y = max(err_y, (yk - yp).abs().max().item())
         err_s = max(err_s, (sk["buf"] - buf_plain).abs().max().item())
         if not torch.isfinite(yk).all():
             raise RuntimeError(f"{name}: non-finite kernel output at block {i}")
-    log(f"compare {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap} "
+    log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
-    if not (err_y <= ATOL and err_s <= ATOL):
-        raise RuntimeError(f"{name}: kernel disagrees with its plain version beyond {ATOL}")
-    return max(err_y, err_s)
+    return _check_err(name, err_y, err_s)
+
+
+def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, fast=False):
+    model = nam.load_model(make_nam("LSTM", config, seed=seed), device="cuda")
+    if fast:
+        act.enable_fast_tanh()
+    try:
+        reason = lstm.supports(model.config, T, B)
+        if reason is not None:
+            raise RuntimeError(f"{name}: kernel refuses the config: {reason}")
+        ep, sk = lstm.prepare(model.config, model.params, T, B)
+        hp, cp = sk["h"].clone(), sk["c"].clone()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        err_y = err_s = 0.0
+        for i in range(n_blocks):
+            x = randn((model.config.in_channels, T, B), gen)
+            yk, sk = lstm.step(model.config, T, ep, sk, x)
+            yp = lstm.step_plain(ep["layout"], ep["weights"], hp, cp, x)
+            torch.cuda.synchronize()
+            err_y = max(err_y, (yk - yp).abs().max().item())
+            err_s = max(err_s, (sk["h"] - hp).abs().max().item(), (sk["c"] - cp).abs().max().item())
+            if not torch.isfinite(yk).all():
+                raise RuntimeError(f"{name}: non-finite kernel output at block {i}")
+    finally:
+        act.disable_fast_tanh()
+    log(f"compare lstm {name}: T={T} B={B} blocks={n_blocks} "
+        f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
+    return _check_err(name, err_y, err_s)
 
 
 def time_per_block(fn, n_iter=20, n_warm=3):
@@ -144,6 +206,182 @@ def time_per_block(fn, n_iter=20, n_warm=3):
     return start.elapsed_time(end) / n_iter
 
 
+def bound(work):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and FLOPs over
+    the float32 rate."""
+    tb, tf = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / F32_FLOPS_PER_S
+    return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
+
+
+def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen):
+    """load_model -> StreamEngine(auto) -> reset with prewarm -> 32 blocks,
+    with every launch counter set to 0 just before and read just after; then
+    the torch engine tier on the same blocks."""
+    model = nam.load_model(doc)  # on the card by default
+    if model.device.type != "cuda":
+        raise RuntimeError(f"{name}: load_model put the model on {model.device}")
+    engine = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN)  # kernel="auto"
+    log(f"main path {name}: StreamEngine(kernel='auto') chose {engine.kernel!r}")
+    if engine.kernel != "fused":
+        raise RuntimeError(f"{name}: auto chose {engine.kernel!r}, expected 'fused'")
+    full, rem = engine.prewarm_plan()
+    if (full, rem) != (expect_full, expect_rem):
+        raise RuntimeError(f"{name}: prewarm plan {(full, rem)} != {(expect_full, expect_rem)}")
+    blocks = [randn((B_MAIN, T_MAIN), gen) for _ in range(N_BLOCKS)]  # mono, (B, T)
+
+    for m in modules.values():
+        m.launches = 0
+    state = engine.reset()  # prewarm on
+    ys = []
+    for x in blocks:
+        y, state = engine.process(x, state)
+        ys.append(y)
+    torch.cuda.synchronize()
+    counts = {k: m.launches for k, m in modules.items()}
+
+    expect = full + (1 if rem else 0) + N_BLOCKS
+    launched = counts[name]
+    log(f"main path {name}: prewarm {model.get_prewarm_samples()} samples = {full} blocks + {rem}-sample "
+        f"remainder; launches {counts}, expected {expect} of {name}")
+    if launched != expect or any(v for k, v in counts.items() if k != name):
+        raise RuntimeError(f"{name}: launch counts {counts}, expected {expect} of {name} and no other")
+    y_fused = torch.stack(ys)
+    if tuple(y_fused.shape) != (N_BLOCKS, B_MAIN, T_MAIN):
+        raise RuntimeError(f"{name}: main path output shape {tuple(y_fused.shape)}")
+    if not torch.isfinite(y_fused).all():
+        raise RuntimeError(f"{name}: non-finite main path output")
+
+    ref = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN, kernel="torch")
+    rstate = ref.reset()
+    yr = []
+    for x in blocks:
+        y, rstate = ref.process(x, rstate)
+        yr.append(y)
+    err = (y_fused - torch.stack(yr)).abs().max().item()
+    log(f"main path {name}: {N_BLOCKS} blocks, |y| max {y_fused.abs().max().item():.3f}, "
+        f"max|fused - torch tier| = {err:.3e}")
+    if not err <= ATOL:
+        raise RuntimeError(f"{name}: main path disagrees with the torch engine tier: {err:.3e} > {ATOL}")
+    return model, {"B": B_MAIN, "T": T_MAIN, "blocks": N_BLOCKS, "prewarm": [full, rem],
+                   "launches": launched, "max_abs_err_vs_torch_tier": err}
+
+
+def cudnn_lstm(model, state_h, state_c):
+    """The library yardstick for K2: torch.nn.LSTM (cuDNN, TF32 off, gates
+    i, f, g, o) with the same weights and per-stream h0, c0, plus the head
+    product. Returns fn(x (T, B, I)) -> y (T, B, O). Timed here only."""
+    cfg, p = model.config, model.params
+    mod = torch.nn.LSTM(cfg.input_size, cfg.hidden_size, cfg.num_layers).cuda()
+    with torch.no_grad():
+        for li, lp in enumerate(p["layers"]):
+            w = lp["w"].t()  # (4H, I+H)
+            isz = cfg.input_size if li == 0 else cfg.hidden_size
+            getattr(mod, f"weight_ih_l{li}").copy_(w[:, :isz])
+            getattr(mod, f"weight_hh_l{li}").copy_(w[:, isz:])
+            getattr(mod, f"bias_ih_l{li}").copy_(lp["b"])
+            getattr(mod, f"bias_hh_l{li}").zero_()
+    mod.flatten_parameters()
+    h0 = state_h.permute(0, 2, 1).contiguous()  # (L, B, H)
+    c0 = state_c.permute(0, 2, 1).contiguous()
+    head_w, head_b = p["head_w"], p["head_b"]
+
+    def run(x_tbi):
+        with torch.no_grad():
+            out, _ = mod(x_tbi, (h0, c0))
+            y = torch.addmm(head_b, out.reshape(-1, cfg.hidden_size), head_w)
+            return y.view(x_tbi.shape[0], -1, cfg.out_channels)
+
+    return run
+
+
+def time_model(nam, mod, name, model, batches, gen, smi, library=None):
+    """Kernel (twice, in turns with the plain version), plain version, torch
+    engine tier, bound and, where given, the library call, per batch size."""
+    cfg, T = model.config, T_MAIN
+    times = {}
+    for Bt in batches:
+        ep, st = mod.prepare(cfg, model.params, T, Bt)
+        x = randn((model.num_input_channels, T, Bt), gen)
+        box = {"s": st}
+
+        def run_kernel():
+            _, box["s"] = mod.step(cfg, T, ep, box["s"], x)
+
+        if name == "lstm_step":
+            hp, cp = st["h"].clone(), st["c"].clone()
+
+            def run_plain():
+                mod.step_plain(ep["layout"], ep["weights"], hp, cp, x)
+        else:
+            buf = st["buf"].clone()
+
+            def run_plain():
+                mod.step_plain(ep["layout"], ep["weights"], buf, x, 0)
+
+        teng = nam.StreamEngine(model, batch=Bt, block_size=T, kernel="torch")
+        tbox = {"s": teng.reset(prewarm=False)}
+
+        def run_torch():
+            _, tbox["s"] = teng.step(tbox["s"], x)
+
+        k1 = time_per_block(run_kernel)
+        p1 = time_per_block(run_plain, n_iter=3, n_warm=1)
+        t1 = time_per_block(run_torch, n_iter=3, n_warm=1)
+        k2 = time_per_block(run_kernel)
+        p2 = time_per_block(run_plain, n_iter=3, n_warm=1)
+        lib_ms = lib_err = None
+        if library is not None:
+            # From the initial state; the yardstick copies h0 and c0, so the
+            # kernel's in-place update below leaves them alone.
+            ep2, st2 = mod.prepare(cfg, model.params, T, Bt)
+            lib = library(model, st2["h"], st2["c"])
+            x_tbi = x.permute(1, 2, 0).contiguous()
+            lib_ms = time_per_block(lambda: lib(x_tbi), n_iter=5, n_warm=2)
+            yk, _ = mod.step(cfg, T, ep2, st2, x)
+            lib_err = (lib(x_tbi).permute(2, 0, 1) - yk).abs().max().item()
+            del ep2, st2, lib
+        w = mod.work(cfg, T, Bt)
+        b_ms, b_by = bound(w)
+        times[Bt] = {
+            "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": t1, "library_ms": lib_ms,
+            "library_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": w["bytes"], "flops": w["flops"],
+        }
+        lib_txt = f", library {lib_ms:.4f} ms (|lib - kernel| {lib_err:.2e})" if lib_ms is not None else ""
+        log(f"time {name} B={Bt} T={T}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+            f"torch tier {t1:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
+        del ep, st, box, teng, tbox
+        torch.cuda.empty_cache()
+    return times
+
+
+def realtime_sweep(mod, name, model, start, cap, gen, smi):
+    """The largest batch (doubling from ``start``) whose kernel time per block
+    stays under the T / 48 kHz deadline."""
+    deadline_ms = 1e3 * T_MAIN / SAMPLE_RATE
+    cfg, T = model.config, T_MAIN
+    rt, Bt, sweep = 0, start, {}
+    while Bt <= cap:
+        ep, st = mod.prepare(cfg, model.params, T, Bt)
+        x = randn((model.num_input_channels, T, Bt), gen)
+        box = {"s": st}
+
+        def run_kernel():
+            _, box["s"] = mod.step(cfg, T, ep, box["s"], x)
+
+        ms = time_per_block(run_kernel, n_iter=10)
+        sweep[Bt] = ms
+        log(f"sweep {name} B={Bt}: kernel {ms:.4f} ms/block (deadline {deadline_ms:.4f} ms)  [{smi}]")
+        del ep, st, box, x
+        torch.cuda.empty_cache()
+        if ms > deadline_ms:
+            break
+        rt = Bt
+        Bt *= 2
+    log(f"real-time 48 kHz streams ({name}, T={T}, doubling sweep up to {cap}): {rt}  [{smi}]")
+    return rt, sweep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -154,10 +392,13 @@ def main() -> int:
         return 2
 
     import neuralampmodelercore_tpu_torch as nam
-    from neuralampmodelercore_tpu_torch.ops.cuda import stack
+    from neuralampmodelercore_tpu_torch.ops import activations as act
+    from neuralampmodelercore_tpu_torch.ops.cuda import convnet, lstm, stack
     from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
+    modules = {"stack_step": stack, "lstm_step": lstm, "convnet_step": convnet}
     report = {}
+    t_start = time.perf_counter()
     # -- 1. the card ------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -166,169 +407,121 @@ def main() -> int:
     log(smi)  # nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
     report["device"] = {"kind": kind, "nvidia_smi": smi}
 
-    # -- 2. build ---------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ---------------
+    def build(mod):
+        t0 = time.perf_counter()
+        so = mod.LIB.compile()
+        mod.LIB.load()
+        return so, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    so = stack.compile_library()
-    stack._library()
-    build_s = time.perf_counter() - t0
-    log(f"build: {stack.SOURCE.name} -> {so.name} ({' '.join(stack.NVCC_FLAGS)}) in {build_s:.1f} s")
-    for line in stack.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log(f"  ptxas: {line.strip()}")
-    report["build_s"] = build_s
+    with ThreadPoolExecutor(len(modules)) as ex:
+        built = dict(zip(modules, ex.map(build, modules.values())))
+    report["build_s"] = {"wall": time.perf_counter() - t0}
+    for name, mod in modules.items():
+        so, secs = built[name]
+        report["build_s"][name] = secs
+        log(f"build: {mod.LIB.source.name} -> {so.name} in {secs:.1f} s")
+        for line in mod.LIB.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line.lower():
+                log(f"  ptxas {mod.LIB.source.name}: {line.strip()}")
+    log(f"build: all {len(modules)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
 
     # -- 3. kernel vs plain -----------------------------------------------
-    errs = {
-        "flagship_T64_B2048": compare_kernel_with_plain(
-            nam, stack, make_nam, "flagship T=64", wavenet_preset("standard"), 64, 2048, 8, SEED),
-        "flagship_T16_B2048": compare_kernel_with_plain(
-            nam, stack, make_nam, "flagship T=16", wavenet_preset("standard"), 16, 2048, 12, SEED + 1),
-        "splice_T16_B2048": compare_kernel_with_plain(
-            nam, stack, make_nam, "offset splice", splice_config(), 16, 2048, 10, SEED + 2),
-        "activations_T32_B1000": compare_kernel_with_plain(
-            nam, stack, make_nam, "all activations", activations_config(), 32, 1000, 8, SEED + 3),
+    # (key, name, config, T, B, blocks); the seed is SEED + the case's index.
+    ring_cases = {
+        "stack_step": ("WaveNet", stack, [
+            ("flagship_T64_B2048", "flagship T=64", wavenet_preset("standard"), 64, 2048, 8),
+            ("flagship_T16_B2048", "flagship T=16", wavenet_preset("standard"), 16, 2048, 12),
+            ("splice_T16_B2048", "offset splice", splice_config(), 16, 2048, 10),
+            ("activations_T32_B1000", "all activations", activations_config(), 32, 1000, 8),
+        ]),
+        "convnet_step": ("ConvNet", convnet, [
+            ("amp_T64_B2048", "amp T=64", AMP_CONVNET, 64, 2048, 12),
+            ("amp_T16_B1024", "amp T=16 (ring wrap)", AMP_CONVNET, 16, 1024, 40),
+            ("no_bn_bias_relu_T64_B1000", "no batchnorm, bias, ReLU",
+             {"channels": 8, "dilations": [1, 2, 4, 8, 128], "batchnorm": False, "activation": "ReLU"},
+             64, 1000, 8),
+            ("groups2_io2_silu_T16_B777", "groups=2, 2 in / 2 out, SiLU",
+             {"channels": 8, "dilations": [1, 2, 4, 32], "batchnorm": True, "activation": "SiLU",
+              "groups": 2, "in_channels": 2, "out_channels": 2}, 16, 777, 10),
+            ("dilation_not_multiple_T16_B512", "dilations 3, 24, 50 at T=16, LeakyHardtanh",
+             {"channels": 6, "dilations": [3, 24, 50], "batchnorm": True,
+              "activation": {"type": "LeakyHardtanh", "min_val": -0.5, "max_val": 0.7}}, 16, 512, 12),
+        ]),
     }
+    lstm_cases = [  # (key, name, config, T, B, blocks, fast-tanh mode)
+        ("1x3_T64_B2048", "1 x 3", {"input_size": 1, "hidden_size": 3, "num_layers": 1}, 64, 2048, 6, False),
+        ("2x16_T64_B2048", "2 x 16", LSTM_MAIN, 64, 2048, 6, False),
+        ("2x16_T34_B2048", "2 x 16 T=34", LSTM_MAIN, 34, 2048, 6, False),
+        ("2x16_T64_B1000", "2 x 16 ragged", LSTM_MAIN, 64, 1000, 6, False),
+        ("2x5_out2_T64_B1000", "2 x 5, 2 outputs",
+         {"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 64, 1000, 6, False),
+        ("2x16_fast_tanh_T64_B2048", "2 x 16 fast-tanh", LSTM_MAIN, 64, 2048, 6, True),
+    ]
+    errs = {name: {} for name in modules}
+    for kname, (arch, mod, cases) in ring_cases.items():
+        for i, (key, name, config, T, B, n) in enumerate(cases):
+            errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i)
+    for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
+        errs["lstm_step"][key] = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
     report["max_abs_err"] = errs
-    max_err = max(errs.values())
 
-    # -- 4. the main path ---------------------------------------------------
-    B, T, n_blocks = 2048, 64, 32
-    doc = make_nam("WaveNet", wavenet_preset("standard"), seed=SEED)
-    model = nam.load_model(doc)  # on the card by default
-    if model.device.type != "cuda":
-        raise RuntimeError(f"load_model put the model on {model.device}")
-    engine = nam.StreamEngine(model, batch=B, block_size=T)  # kernel="auto"
-    log(f"main path: StreamEngine(kernel='auto') chose {engine.kernel!r}")
-    if engine.kernel != "fused":
-        raise RuntimeError(f"auto chose {engine.kernel!r}, expected 'fused'")
+    # -- 4. the main paths ----------------------------------------------------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    blocks = [randn((B, T), gen) for _ in range(n_blocks)]
+    main_models, main = {}, {}
+    main_models["stack_step"], main["stack_step"] = run_main_path(
+        nam, modules, "stack_step", make_nam("WaveNet", wavenet_preset("standard"), seed=SEED), 64, 0, gen)
+    # 0.5 s at 44.1 kHz = 22,050 samples = 344 blocks of 64 and a 34-sample remainder.
+    main_models["lstm_step"], main["lstm_step"] = run_main_path(
+        nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen)
+    main_models["convnet_step"], main["convnet_step"] = run_main_path(
+        nam, modules, "convnet_step", make_nam("ConvNet", AMP_CONVNET, seed=SEED), 16, 0, gen)
+    report["main_path"] = main
+    torch.cuda.empty_cache()
 
-    stack.launches = 0
-    state = engine.reset()  # prewarm on
-    ys = []
-    for x in blocks:
-        y, state = engine.process(x, state)
-        ys.append(y)
-    torch.cuda.synchronize()
-    launched = stack.launches
-    expect = engine.prewarm_blocks() + n_blocks
-    log(f"main path: prewarm {model.get_prewarm_samples()} samples = {engine.prewarm_blocks()} blocks; "
-        f"kernel launches {launched}, expected {expect}")
-    if launched != expect:
-        raise RuntimeError(f"launch count {launched} != {expect}")
-    y_fused = torch.stack(ys)
-    if tuple(y_fused.shape) != (n_blocks, B, T) or not torch.isfinite(y_fused).all():
-        raise RuntimeError(f"main path output shape {tuple(y_fused.shape)} or non-finite values")
-
-    ref = nam.StreamEngine(model, batch=B, block_size=T, kernel="torch")
-    rstate = ref.reset()
-    yr = []
-    for x in blocks:
-        y, rstate = ref.process(x, rstate)
-        yr.append(y)
-    main_err = (y_fused - torch.stack(yr)).abs().max().item()
-    log(f"main path: {n_blocks} blocks, |y| max {y_fused.abs().max().item():.3f}, "
-        f"max|fused - torch tier| = {main_err:.3e}")
-    if not main_err <= ATOL:
-        raise RuntimeError(f"main path disagrees with the torch engine tier: {main_err:.3e} > {ATOL}")
-    report["main_path"] = {"B": B, "T": T, "blocks": n_blocks, "launches": launched, "max_abs_err_vs_torch_tier": main_err}
-    del engine, ref, state, rstate
-
-    # -- 5. timing ----------------------------------------------------------
-    deadline_ms = 1e3 * T / SAMPLE_RATE
-    cfg = model.config
-    times = {}
-    for Bt in (1024, 2048, 4096):
-        ep, st = stack.prepare(cfg, model.params, T, Bt)
-        layout = ep["layout"]
-        x = randn((1, T, Bt), gen)
-        box = {"s": st}
-
-        def run_kernel():
-            _, box["s"] = stack.step(cfg, T, ep, box["s"], x)
-
-        def run_plain():
-            stack.step_plain(layout, ep["weights"], box["s"]["buf"], x, 0)
-
-        teng = nam.StreamEngine(model, batch=Bt, block_size=T, kernel="torch")
-        tbox = {"s": teng.reset(prewarm=False)}
-
-        def run_torch():
-            _, tbox["s"] = teng.step(tbox["s"], x)
-
-        k1 = time_per_block(run_kernel)
-        p1 = time_per_block(run_plain, n_iter=5)
-        t1 = time_per_block(run_torch, n_iter=5)
-        k2 = time_per_block(run_kernel)
-        p2 = time_per_block(run_plain, n_iter=5)
-        w = stack.work(cfg, T, Bt)
-        bound = 1e3 * max(w["bytes"] / HBM_BYTES_PER_S, w["flops"] / F32_FLOPS_PER_S)
-        times[Bt] = {
-            "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": t1,
-            "bound_ms": bound,
-            "bound_by": "bytes" if w["bytes"] / HBM_BYTES_PER_S >= w["flops"] / F32_FLOPS_PER_S else "operations",
-            "bytes": w["bytes"], "flops": w["flops"],
-        }
-        log(f"time B={Bt} T={T}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-            f"torch tier {t1:.4f} ms, bound {bound:.4f} ms ({times[Bt]['bound_by']}), "
-            f"deadline {deadline_ms:.4f} ms  [{smi}]")
-        del ep, st, box, teng, tbox
-        torch.cuda.empty_cache()
-
-    # Real-time streams: the largest batch (doubling) whose kernel time per
-    # block stays under the T / 48 kHz deadline.
-    rt_streams, Bt = 0, 4096
-    sweep = {}
-    while Bt <= 65536:
-        ep, st = stack.prepare(cfg, model.params, T, Bt)
-        x = randn((1, T, Bt), gen)
-        box = {"s": st}
-
-        def run_kernel():
-            _, box["s"] = stack.step(cfg, T, ep, box["s"], x)
-
-        ms = time_per_block(run_kernel, n_iter=10)
-        sweep[Bt] = ms
-        log(f"sweep B={Bt}: kernel {ms:.4f} ms/block (deadline {deadline_ms:.4f} ms)")
-        del ep, st, box
-        torch.cuda.empty_cache()
-        if ms > deadline_ms:
-            break
-        rt_streams = Bt
-        Bt *= 2
-    log(f"real-time 48 kHz streams (kernel, T={T}, doubling sweep): {rt_streams}  [{smi}]")
-    report["times"] = times
-    report["sweep_ms"] = sweep
-    report["realtime_streams"] = rt_streams
-
-    # -- 6. result lines ----------------------------------------------------
-    main_t = times[2048]
-    kernels = {
-        "kernels": [
-            {
-                "name": "stack_step",
-                "route": "cuda",
-                "source": "neuralampmodelercore_tpu_torch/csrc/stack.cu",
-                "replaces": "neuralampmodelercore_tpu/ops/pallas/stack.py:1769",
-                "tpu_counterpart": "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a)",
-                "launches": launched,
-                "max_abs_err": max_err,
-                "ms": min(main_t["kernel_ms"]),
-                "kernel_ms": min(main_t["kernel_ms"]),
-                "plain_ms": min(main_t["plain_ms"]),
-                "bound_ms": main_t["bound_ms"],
-                "bound_by": main_t["bound_by"],
-                "library_ms": None,
-                "shape": {"B": 2048, "T": T},
-            }
-        ]
+    # -- 5. timing ------------------------------------------------------------
+    report["times"] = {
+        "stack_step": time_model(nam, stack, "stack_step", main_models["stack_step"], (1024, 2048, 4096), gen, smi),
+        "lstm_step": time_model(nam, lstm, "lstm_step", main_models["lstm_step"], (2048, 8192, 32768), gen, smi,
+                                library=cudnn_lstm),
+        "convnet_step": time_model(nam, convnet, "convnet_step", main_models["convnet_step"], (2048, 8192, 32768),
+                                   gen, smi),
     }
-    report["kernels"] = kernels["kernels"]
+    report["realtime_streams"], report["sweep_ms"] = {}, {}
+    for name, start, cap in (("stack_step", 4096, 65536), ("lstm_step", 8192, 1 << 20),
+                             ("convnet_step", 8192, 1 << 18)):
+        report["realtime_streams"][name], report["sweep_ms"][name] = realtime_sweep(
+            modules[name], name, main_models[name], start, cap, gen, smi)
+
+    # -- 6. result lines ------------------------------------------------------
+    kernels = []
+    for name in modules:
+        t = report["times"][name][B_MAIN]
+        replaces, counterpart = REPLACES[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"neuralampmodelercore_tpu_torch/csrc/{modules[name].LIB.source.name}",
+            "replaces": replaces,
+            "tpu_counterpart": counterpart,
+            "launches": main[name]["launches"],
+            "max_abs_err": max(errs[name].values()),
+            "ms": min(t["kernel_ms"]),
+            "kernel_ms": min(t["kernel_ms"]),
+            "plain_ms": min(t["plain_ms"]),
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": {"B": B_MAIN, "T": T_MAIN},
+        })
+    report["kernels"] = kernels
+    report["seconds"] = time.perf_counter() - t_start
+    log(f"chip_smoke: {report['seconds']:.1f} s  [{smi}]")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    log(json.dumps(kernels))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -2,11 +2,16 @@
 neuralampmodelercore_tpu, for NVIDIA Hopper (H100).
 
 It loads standard ``.nam`` model files and serves them as batched
-block-streaming inference, with the same semantics as the JAX package. This
-slice ports the WaveNet main path: the loader, the generic tier, the torch
-engine tier and the fused stack step as a hand-written CUDA kernel
-(ops/cuda/stack.py, csrc/stack.cu). Other architectures raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+block-streaming inference, with the same semantics as the JAX package. Three
+architectures are ported, each with its loader, generic tier, torch engine
+tier and a fused tier that runs one hand-written CUDA kernel per block:
+
+  - WaveNet: ops/cuda/stack.py, csrc/stack.cu;
+  - LSTM: ops/cuda/lstm.py, csrc/lstm.cu;
+  - ConvNet: ops/cuda/convnet.py, csrc/convnet.cu.
+
+Linear and the meta-models raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 
     import neuralampmodelercore_tpu_torch as nam
     model = nam.load_model("model.nam")             # on "cuda" unless told otherwise
@@ -56,7 +61,7 @@ from .version import (  # noqa: E402
 from .models.base import DEFAULT_MAX_BUFFER_SIZE, Model, ScopedPrewarmOnResetDefault  # noqa: E402
 
 # Importing the model modules registers the architectures.
-from .models import wavenet  # noqa: E402,F401
+from .models import convnet, lstm, wavenet  # noqa: E402,F401
 from .models.engine import StreamEngine  # noqa: E402
 from .ops import activations  # noqa: E402
 

@@ -6,13 +6,14 @@ engine fixes the block size T at construction, keeps conv history in
 chunked-FIFO rings with O(T) traffic per block, and prepares its weights once.
 
     engine = StreamEngine(model, batch=4096, block_size=64)
-    state = engine.reset()                    # zero state + prewarm
+    state = engine.reset()                    # zero state + exact prewarm
     y, state = engine.process(x, state)       # x: (batch, block_size[, C])
 
 Kernel tiers:
-  - "fused": the hand-written CUDA stack kernel (ops/cuda/stack.py), one
-    launch per block; on a CPU model it runs the kernel's plain version;
-  - "torch": the per-op engine step (models/wavenet.py engine_step);
+  - "fused": the architecture's hand-written CUDA kernel (ops/cuda/stack.py,
+    lstm.py or convnet.py, chosen by ``backend_for``), one launch per block;
+    on a CPU model it runs the kernel's plain version;
+  - "torch": the per-op engine step (the architecture's ``engine_step``);
   - "auto": "fused" when the model is on a CUDA device and the kernel's
     ``supports`` passes, else "torch".
 
@@ -23,7 +24,7 @@ state layout and traffic differ. A state passed to ``process`` is consumed
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,21 +86,33 @@ class StreamEngine:
         with torch.no_grad():
             return self._step_fn(self.model.config, self.block_size, self._eparams, state, x_ctb)
 
-    def prewarm_blocks(self) -> int:
-        """Zero blocks ``prewarm`` runs: ceil(prewarm samples / T). For the
-        feed-forward architectures ported so far the state is a function of
-        the last receptive-field inputs, so the (< T) zero samples beyond the
-        reference's exact count leave it at the same fixed point
-        (engine.py:137-168 of the JAX package)."""
-        n = self.model.get_prewarm_samples()
-        if registry.arch_for_config(self.model.config).recurrent:
-            raise NotImplementedError("exact remainder prewarm for recurrent models: ROADMAP Queue 1 item 7")
-        return -(-max(n, 0) // self.block_size)
+    def prewarm_plan(self) -> Tuple[int, int]:
+        """(full blocks, remainder samples) that ``prewarm`` runs, as the JAX
+        package's engine (engine.py:137-168). Feed-forward architectures run
+        ceil(n / T) zero blocks: their state is a function of the last
+        receptive-field inputs, so the (< T) zero samples beyond the
+        reference's exact count leave it at the same fixed point. Recurrent
+        architectures (LSTM) have no such fixed point: they run n // T full
+        blocks, then one step of n mod T samples on the same tier, eparams
+        and state. The step launches once per block, so a fused engine's
+        prewarm makes ``full + (rem > 0)`` kernel launches."""
+        n = max(self.model.get_prewarm_samples(), 0)
+        full, rem = divmod(n, self.block_size)
+        if rem and not registry.arch_for_config(self.model.config).recurrent:
+            full, rem = full + 1, 0
+        return full, rem
 
     def prewarm(self, state: Any) -> Any:
-        zeros = torch.zeros((self.model.num_input_channels, self.block_size, self.batch), device=self.device)
-        for _ in range(self.prewarm_blocks()):
+        full, rem = self.prewarm_plan()
+        cin, B = self.model.num_input_channels, self.batch
+        zeros = torch.zeros((cin, self.block_size, B), device=self.device)
+        for _ in range(full):
             _, state = self.step(state, zeros)
+        if rem:
+            with torch.no_grad():
+                _, state = self._step_fn(
+                    self.model.config, rem, self._eparams, state, torch.zeros((cin, rem, B), device=self.device)
+                )
         return state
 
     def reset(self, prewarm: Optional[bool] = None) -> Any:

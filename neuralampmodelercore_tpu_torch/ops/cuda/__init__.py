@@ -5,12 +5,22 @@
 def backend_for(cfg):
     """The kernel module serving this config type. Its ``supports`` still
     decides per (T, batch) whether the kernel applies."""
+    from ...models.convnet import ConvNetConfig
+    from ...models.lstm import LSTMConfig
     from ...models.wavenet import WaveNetConfig
 
     if isinstance(cfg, WaveNetConfig):
         from . import stack
 
         return stack
+    if isinstance(cfg, LSTMConfig):
+        from . import lstm
+
+        return lstm
+    if isinstance(cfg, ConvNetConfig):
+        from . import convnet
+
+        return convnet
     raise NotImplementedError(
-        f"no CUDA kernel for {type(cfg).__name__} yet (ROADMAP Queue 2: K2 LSTM, K3 ConvNet)"
+        f"no CUDA kernel for {type(cfg).__name__} (ROADMAP Queue 1 item 9 ports Linear, which has no kernel)"
     )

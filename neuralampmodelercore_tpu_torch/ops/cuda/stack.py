@@ -28,28 +28,17 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import math
-import os
-import subprocess
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import activations as act
+from . import _build
 
 #: Kernel launches so far; ``step_plain`` does not count.
 launches = 0
-
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "stack.cu"
-BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 MAX_T = 512  # one thread per (frame, stream); at most 512 threads per CTA
 MAX_CHANNELS = 32
@@ -404,53 +393,13 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
 # The kernel: build, bind, launch
 # =============================================================================
 
-_lib: Optional[ctypes.CDLL] = None
-#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of the build.
-build_log = ""
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.nam_stack_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.nam_stack_step.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
-def library_path() -> Path:
-    """Where the build of the current sources goes, keyed by their hash."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"stack_{key}.so"
-
-
-def compile_library() -> Path:
-    """Run nvcc on csrc/stack.cu unless this source's build exists already."""
-    global build_log
-    so = library_path()
-    log = so.with_suffix(".log")
-    if so.exists():
-        build_log = log.read_text() if log.exists() else ""
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n{build_log}")
-    log.write_text(build_log)
-    os.replace(tmp, so)
-    return so
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(compile_library()))
-        lib.nam_stack_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.nam_stack_step.restype = ctypes.c_int
-        lib.nam_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nam_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+#: csrc/stack.cu, built by nvcc at first launch (``LIB.build_log``: ptxas's report).
+LIB = _build.Library("stack.cu", _bind)
 
 
 def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch.Tensor,
@@ -467,15 +416,14 @@ def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch
         raise ValueError("plan must be an int64 tensor on x's device")
     if tuple(x.shape) != (layout.Cin, T, B):
         raise ValueError(f"x shape {tuple(x.shape)} != {(layout.Cin, T, B)}")
-    lib = _library()
+    lib = LIB.load()
     y = torch.empty((layout.Cout, T, B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.nam_stack_step(
         x.data_ptr(), y.data_ptr(), buf.data_ptr(), weights.data_ptr(), plan.data_ptr(),
         T, B, n, layout.BS, layout.c_max, layout.smem_bytes, stream,
     )
-    if err != 0:
-        raise RuntimeError(f"stack kernel launch failed: {lib.nam_cuda_error_string(err).decode()} ({err})")
+    LIB.check(err, "stack kernel")
     launches += 1
     return y
 

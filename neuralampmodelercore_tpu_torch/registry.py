@@ -10,7 +10,8 @@ functions over (config, params, state) with tensors on an explicit device:
   init_state(config, params, batch)                -> state
   step(config, params, state, x)                   -> (y, state')
 
-Architectures the port does not have yet raise ``NotImplementedError`` naming
+WaveNet, LSTM and ConvNet are ported. Linear and the meta-models
+(SlimmableWavenet, SlimmableContainer) raise ``NotImplementedError`` naming
 the ROADMAP item that ports them.
 """
 
@@ -27,8 +28,6 @@ State = Any
 
 # Architectures of the reference that later slices port (ROADMAP.md Queue 1).
 NOT_PORTED: Dict[str, str] = {
-    "LSTM": "ROADMAP Queue 1 item 7 (LSTM)",
-    "ConvNet": "ROADMAP Queue 1 item 8 (ConvNet)",
     "Linear": "ROADMAP Queue 1 item 9 (Linear)",
     "SlimmableWavenet": "ROADMAP Queue 1 item 10 (meta-models: slimmable WaveNet)",
     "SlimmableContainer": "ROADMAP Queue 1 item 10 (meta-models: SlimmableContainer)",
@@ -65,7 +64,8 @@ class ArchDef:
     engine_step: Optional[Callable[..., Tuple[Any, State]]] = None
     # True for architectures whose state is not a function of the last
     # receptive-field inputs (LSTM): their engine prewarm runs the exact
-    # sample count. No ported architecture sets it yet.
+    # sample count, with a remainder step shorter than T. A WaveNet with an
+    # LSTM condition DSP stays False, as in the JAX package.
     recurrent: bool = False
 
 

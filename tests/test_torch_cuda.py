@@ -1,5 +1,6 @@
-"""Tests that need the CUDA card: the stack kernel against its plain version
-on the same CUDA inputs, and the main path's choice of the kernel.
+"""Tests that need the CUDA card: each kernel (stack, lstm, convnet) against
+its plain version on the same CUDA inputs, and each main path's choice of its
+kernel with its exact launch count.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch. Every test is marked ``cuda`` and skips, inside the
@@ -14,6 +15,9 @@ import pytest
 import torch
 
 import neuralampmodelercore_tpu_torch as tnam
+from neuralampmodelercore_tpu_torch.ops import activations as tact
+from neuralampmodelercore_tpu_torch.ops.cuda import convnet as tconv
+from neuralampmodelercore_tpu_torch.ops.cuda import lstm as tlstm
 from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
 from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
@@ -65,11 +69,105 @@ def test_main_path_runs_the_kernel():
     assert eng.kernel == "fused" and ref.kernel == "torch"
     before = tstack.launches
     s, rs = eng.reset(), ref.reset()
-    assert tstack.launches == before + eng.prewarm_blocks()
+    assert eng.prewarm_plan()[1] == 0
+    assert tstack.launches == before + eng.prewarm_plan()[0]
     gen = torch.Generator(device="cuda").manual_seed(3)
     for _ in range(4):
         x = torch.randn((256, 64), generator=gen, device="cuda") * 0.3
         y, s = eng.process(x, s)
         yr, rs = ref.process(x, rs)
         torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
-    assert tstack.launches == before + eng.prewarm_blocks() + 4
+    assert tstack.launches == before + eng.prewarm_plan()[0] + 4
+
+
+LSTM_2X16 = {"input_size": 1, "hidden_size": 16, "num_layers": 2}
+AMP_CONVNET = {"channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512], "batchnorm": True,
+               "activation": "Tanh"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "config,T,B,fast",
+    [
+        ({"input_size": 1, "hidden_size": 3, "num_layers": 1}, 64, 1024, False),
+        (LSTM_2X16, 64, 1000, False),
+        (LSTM_2X16, 34, 256, False),
+        ({"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 16, 300, False),
+        (LSTM_2X16, 64, 512, True),
+    ],
+)
+def test_lstm_kernel_matches_plain_version(config, T, B, fast):
+    _cuda_or_skip()
+    tm = tnam.load_model(make_nam("LSTM", config, seed=2))
+    ep, sk = tlstm.prepare(tm.config, tm.params, T, B)
+    h, c = sk["h"].clone(), sk["c"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = tlstm.launches
+    if fast:
+        tact.enable_fast_tanh()
+    try:
+        for _ in range(4):
+            x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+            yk, sk = tlstm.step(tm.config, T, ep, sk, x)
+            yp = tlstm.step_plain(ep["layout"], ep["weights"], h, c, x)
+            torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["h"], h, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["c"], c, rtol=0, atol=ATOL)
+    finally:
+        tact.disable_fast_tanh()
+    assert tlstm.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "config,T,B",
+    [
+        (AMP_CONVNET, 64, 1024),
+        (AMP_CONVNET, 16, 1000),
+        ({"channels": 8, "dilations": [1, 3, 24, 50], "batchnorm": False, "activation": "SiLU", "groups": 2,
+          "in_channels": 2, "out_channels": 2}, 16, 300),
+    ],
+)
+def test_convnet_kernel_matches_plain_version(config, T, B):
+    _cuda_or_skip()
+    tm = tnam.load_model(make_nam("ConvNet", config, seed=2))
+    ep, sk = tconv.prepare(tm.config, tm.params, T, B)
+    buf = sk["buf"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = tconv.launches
+    for _ in range(12):
+        x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+        n = sk["n"]
+        yk, sk = tconv.step(tm.config, T, ep, sk, x)
+        yp = tconv.step_plain(ep["layout"], ep["weights"], buf, x, n)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+        torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+    assert tconv.launches == before + 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "arch,config,sample_rate,plan",
+    [("LSTM", LSTM_2X16, 44100, (344, 34)), ("ConvNet", AMP_CONVNET, 48000, (16, 0))],
+)
+def test_lstm_and_convnet_main_paths_run_their_kernels(arch, config, sample_rate, plan):
+    """auto picks the kernel; prewarm launches it for every full block and
+    once for the remainder; the result matches the torch engine tier."""
+    _cuda_or_skip()
+    mod = tlstm if arch == "LSTM" else tconv
+    tm = tnam.load_model(make_nam(arch, config, seed=2, sample_rate=sample_rate))
+    eng = tnam.StreamEngine(tm, batch=256, block_size=64)
+    ref = tnam.StreamEngine(tm, batch=256, block_size=64, kernel="torch")
+    assert eng.kernel == "fused" and ref.kernel == "torch"
+    assert eng.prewarm_plan() == plan
+    before = mod.launches
+    s, rs = eng.reset(), ref.reset()
+    prewarm_launches = plan[0] + (1 if plan[1] else 0)
+    assert mod.launches == before + prewarm_launches
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(4):
+        x = torch.randn((256, 64), generator=gen, device="cuda") * 0.3
+        y, s = eng.process(x, s)
+        yr, rs = ref.process(x, rs)
+        torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
+    assert mod.launches == before + prewarm_launches + 4

@@ -26,7 +26,7 @@ def test_slice_matches_jax_stream_engine_with_prewarm(kernel, T, B):
     te = tnam.StreamEngine(tm, batch=B, block_size=T, kernel=kernel)
     # auto on a CPU model is the torch tier: the kernel runs on the card only.
     assert te.kernel == {"auto": "torch", "fused": "fused", "torch": "torch"}[kernel]
-    assert te.prewarm_blocks() == -(-jm.get_prewarm_samples() // T)
+    assert te.prewarm_plan() == (-(-jm.get_prewarm_samples() // T), 0)  # feed-forward: ceil blocks
     js, ts = je.reset(), te.reset()
     rng = np.random.default_rng(23)
     before = tstack.launches

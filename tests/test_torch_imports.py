@@ -42,8 +42,40 @@ def test_no_jax_imports(path):
 
 def test_scan_covers_the_package():
     names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
-    assert {"__init__.py", "ops/cuda/stack.py", "models/engine.py", "models/wavenet.py"} <= names
-    assert (PORT / "csrc" / "stack.cu").exists()
+    assert {
+        "__init__.py", "models/engine.py", "models/wavenet.py", "models/lstm.py", "models/convnet.py",
+        "ops/cuda/_build.py", "ops/cuda/stack.py", "ops/cuda/lstm.py", "ops/cuda/convnet.py",
+    } <= names
+    for src in ("stack.cu", "lstm.cu", "convnet.cu", "activations.cuh"):
+        assert (PORT / "csrc" / src).exists()
+
+
+def test_build_key_covers_source_headers_and_flags(monkeypatch, tmp_path):
+    """A library is keyed by its source, every csrc/*.cuh header and the
+    flags: editing any of them builds anew instead of loading a stale .so.
+    Nothing is compiled or loaded to compute the key."""
+    from neuralampmodelercore_tpu_torch.ops.cuda import _build, convnet, lstm, stack
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.Library("k.cu", lambda lib: None)
+    first = lib.path()
+    assert first.parent == tmp_path / "build" and first.name.startswith("k_") and first.suffix == ".so"
+    assert lib.path() == first
+    (csrc / "h.cuh").write_text("// v2\n")
+    second = lib.path()
+    assert second != first
+    (csrc / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert lib.path() not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
+    assert lib.path() != second
+    assert not (tmp_path / "build").exists()
+    # The port's three kernels each have their own library and source.
+    assert [m.LIB.source.name for m in (stack, lstm, convnet)] == ["stack.cu", "lstm.cu", "convnet.cu"]
 
 
 def test_load_model_without_device_raises_when_no_card(monkeypatch):

@@ -137,6 +137,11 @@ def test_generator_copy_matches_jax_generator():
     assert tgenerate.with_condition_dsp(wavenet_preset("standard"), sub) == with_condition_dsp(
         wavenet_preset("standard"), sub
     )
+    for arch, config in (("LSTM", {"input_size": 1, "hidden_size": 16, "num_layers": 2}),
+                         ("ConvNet", {"channels": 16, "dilations": [1, 2, 4], "batchnorm": True,
+                                      "activation": "Tanh"})):
+        assert tgenerate.make_nam(arch, config, seed=4, sample_rate=44100) == make_nam(
+            arch, config, seed=4, sample_rate=44100)
 
 
 def test_metadata_return_data_and_prewarm_option():
@@ -161,9 +166,22 @@ def test_metadata_return_data_and_prewarm_option():
     [
         ("LSTM", {"input_size": 1, "hidden_size": 4, "num_layers": 1}),
         ("ConvNet", {"channels": 4, "dilations": [1, 2], "batchnorm": False, "activation": "Tanh"}),
-        ("Linear", {"receptive_field": 8, "bias": True}),
     ],
 )
+def test_ported_architectures_load_and_match_jax(arch, config):
+    """LSTM and ConvNet load, alone and as a nested condition DSP, with the
+    JAX loader's config, prewarm count and bit-equal parameters."""
+    doc = make_nam(arch, config, seed=0)
+    nested = make_nam("WaveNet", with_condition_dsp({"layers": [_layer()], "head": None}, doc), seed=0)
+    for d in (doc, nested):
+        jm, tm = jnam.load_model(d), tnam.load_model(d, device="cpu")
+        assert tm.architecture == jm.architecture
+        assert dataclasses.asdict(tm.config) == dataclasses.asdict(jm.config)
+        assert tm.get_prewarm_samples() == jm.get_prewarm_samples()
+        _assert_trees_equal(params_from_jax(jax.tree_util.tree_map(np.asarray, jm.params), "cpu"), tm.params)
+
+
+@pytest.mark.parametrize("arch,config", [("Linear", {"receptive_field": 8, "bias": True})])
 def test_unported_architectures_raise_with_roadmap_item(arch, config):
     doc = make_nam(arch, config, seed=0)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
@@ -188,4 +206,4 @@ def test_meta_models_and_legacy_loader_raise():
     with pytest.raises(FileNotFoundError):
         tnam.load_model("/nonexistent/model.nam", device="cpu")
     assert tnam.get_dsp is tnam.load_model
-    assert tregistry.has_architecture("WaveNet") and not tregistry.has_architecture("LSTM")
+    assert tregistry.has_architecture("WaveNet") and not tregistry.has_architecture("Linear")

@@ -226,7 +226,7 @@ def test_supports_block_size_and_backend():
     assert tstack.supports(tm.config, 64, 100) is None  # any batch: the ragged tile is masked
     assert "block size" in tstack.supports(tm.config, 1024, B)
     assert "WaveNetConfig" in tstack.supports(object(), 64, B)
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         backend_for(object())
 
 

@@ -3,34 +3,47 @@
 
     python3 chip_smoke.py [--out report.json]
 
-It drives the port's three main paths, WaveNet, LSTM and ConvNet, each
-through load_model(.nam) -> StreamEngine(kernel="auto") -> its hand-written
-CUDA kernel. Phases (any failure raises and exits non-zero):
+It drives the port's five main paths, each through load_model(.nam) ->
+StreamEngine(kernel="auto") -> its hand-written CUDA kernel: the WaveNet
+flagship, the LSTM and the ConvNet, and two WaveNets on the stack kernel's
+features: flagship_cond (the flagship with a WaveNet condition DSP, two nets
+in one launch) and flagship_max (gating, blending, bottleneck, head1x1, FiLM
+at all 8 sites, the k=16 head conv and a post-stack head at the flagship's
+widths). Phases (any failure raises and exits non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build every kernel from the checkout's sources (one nvcc per source, all
      started together, sm_90a) and print each build time and ptxas's
-     register / spill report;
+     register / spill report per kernel instance;
   3. each kernel against its plain PyTorch version on the card, same inputs
      from a seed, state carried, outputs and state to <= 2e-5 absolute:
      stack (the flagship at T=64 and T=16, offset-splice dilations, every
-     activation), lstm (1 x 3, 2 x 16 at T=64, T=34 and a ragged B=1000,
-     H=5 with two outputs, fast-tanh mode), convnet (the amp ConvNet at
-     T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
+     activation; each FiLM site alone at T=16 with conv_pre_film on a
+     dilation that wraps its ring, gated with bottleneck != channels,
+     blended with head1x1, layer1x1_post_film under blended and under none,
+     head1x1_post_film, a k=16 head with bias at T=64 and T=16, a post-stack
+     head, a depth-2 WaveNet condition chain, an LSTM condition pre-pass
+     (K2 and the stack kernel must each launch once per block), per-channel
+     PReLU, flagship_max), lstm (1 x 3, 2 x 16 at T=64, T=34 and a ragged
+     B=1000, H=5 with two outputs, fast-tanh mode), convnet (the amp ConvNet
+     at T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
      groups=2, two in/out channels, a non-Tanh activation, dilations that
      are not multiples of T);
   4. each main path end to end at B=2048, T=64: load_model on the card,
      StreamEngine with kernel="auto" (must pick "fused"), reset with prewarm,
      32 blocks. Every launch counter is set to 0 just before the path and
      read just after; the path's kernel must have run exactly prewarm + 32
-     times (the LSTM's prewarm is 344 full blocks and one 34-sample
-     remainder step), and the output must be finite and within 2e-5 of the
-     torch engine tier on the card;
+     times and no other kernel at all (the LSTM's prewarm is 344 full blocks
+     and one 34-sample remainder step), and the output must be finite and
+     within 2e-5 of the torch engine tier on the card;
   5. per-block times with CUDA events after warm-up, printed beside the
      card's name and power limit: the kernel (twice), its plain version, the
      torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
      the head product as the library yardstick; then a doubling sweep of the
      kernel for the real-time 48 kHz stream count of each model;
-  6. a {"kernels": [...]} line, then as the last line
+  6. the agreement sweep (neuralampmodelercore_tpu_torch/tools/agreement.py):
+     every kernel config against the torch engine tier, 8 blocks at B=256
+     and 512, T=64, within 2e-5; one JSON per config;
+  7. a {"kernels": [...]} line, then as the last line
      {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX; it needs a CUDA card and exits non-zero
@@ -41,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,9 +75,21 @@ AMP_CONVNET = {  # tests/test_pallas_convnet.py:63-70 of the JAX package
     "batchnorm": True, "activation": "Tanh",
 }
 
+# The stack kernel's main paths (the flagship's is keyed by the kernel's name).
+STACK_PATHS = ("stack_step", "flagship_cond", "flagship_max")
+# Stack feature cases against the plain version: (config in tools/agreement.py, T, B, blocks).
+STACK_FEATURE_CASES = [(f"film_{site}", 16, 2048, 6) for site in (
+    "conv_pre_film", "conv_post_film", "input_mixin_pre_film", "input_mixin_post_film",
+    "activation_pre_film", "activation_post_film")] + [
+    ("gated_bottleneck", 16, 2048, 6), ("blended_head1x1", 16, 1000, 6), ("layer1x1_post_film_blended", 16, 2048, 6),
+    ("layer1x1_post_film_none", 16, 2048, 6), ("head1x1_post_film", 16, 2048, 6), ("head_k16", 64, 2048, 6),
+    ("head_k16", 16, 2048, 6), ("post_head", 16, 2048, 6), ("condition_chain_depth2", 16, 2048, 6),
+    ("condition_lstm_prepass", 16, 2048, 6), ("prelu_per_channel", 16, 2048, 6), ("flagship_max", 64, 2048, 4),
+]
+
 REPLACES = {
     "stack_step": ("neuralampmodelercore_tpu/ops/pallas/stack.py:1769",
-                   "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a)"),
+                   "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a-K1e)"),
     "lstm_step": ("neuralampmodelercore_tpu/ops/pallas/lstm.py:208",
                   "neuralampmodelercore_tpu/ops/pallas/lstm.py _make_kernel (K2)"),
     "convnet_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
@@ -137,9 +163,12 @@ def _check_err(name, err_y, err_s):
     return max(err_y, err_s)
 
 
-def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed):
+def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None):
     """Same model, same inputs, state carried: a kernel with a flat ring-state
-    buffer (stack, convnet) vs its plain version."""
+    buffer (stack, convnet) vs its plain version. A stack model with an LSTM
+    condition pre-pass takes the pre-pass through K2 on the kernel's side and
+    through K2's plain version on the plain side; each kernel must launch once
+    per block."""
     model = nam.load_model(make_nam(arch, config, seed=seed), device="cuda")
     reason = mod.supports(model.config, T, B)
     if reason is not None:
@@ -147,19 +176,36 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
     ep, sk = mod.prepare(model.config, model.params, T, B)
     layout = ep["layout"]
     buf_plain = sk["buf"].clone()
+    cstate = None
+    if "condition" in sk:
+        sub_step, sub_ep = ep["condition"]
+        if lstm is None or sub_step is not lstm.step:
+            raise RuntimeError(f"{name}: the condition pre-pass does not run the LSTM kernel")
+        cstate = {k: v.clone() for k, v in sk["condition"].items()}
     gen = torch.Generator(device="cuda").manual_seed(seed)
     err_y = err_s = 0.0
+    before = (mod.launches, lstm.launches if lstm else 0)
     for i in range(n_blocks):
         x = randn((layout.Cin, T, B), gen)
         n = sk["n"]
+        cond = []
+        if cstate is not None:
+            cond = [lstm.step_plain(sub_ep["layout"], sub_ep["weights"], cstate["h"], cstate["c"], x)]
         yk, sk = mod.step(model.config, T, ep, sk, x)
-        yp = mod.step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap)
+        yp = mod.step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap, *cond)
         torch.cuda.synchronize()
         err_y = max(err_y, (yk - yp).abs().max().item())
         err_s = max(err_s, (sk["buf"] - buf_plain).abs().max().item())
+        if cstate is not None:
+            err_s = max(err_s, *((sk["condition"][k] - cstate[k]).abs().max().item() for k in ("h", "c")))
         if not torch.isfinite(yk).all():
             raise RuntimeError(f"{name}: non-finite kernel output at block {i}")
-    log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap} "
+    launched = (mod.launches - before[0], lstm.launches - before[1] if lstm else 0)
+    expect = (n_blocks, n_blocks if cstate is not None else 0)
+    if launched != expect:
+        raise RuntimeError(f"{name}: launches (kernel, K2) {launched}, expected {expect}")
+    prepass = f" launches stack {launched[0]}, lstm {launched[1]};" if cstate is not None else ""
+    log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap}{prepass} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
     return _check_err(name, err_y, err_s)
 
@@ -213,20 +259,22 @@ def bound(work):
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
-def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen):
+def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=None):
     """load_model -> StreamEngine(auto) -> reset with prewarm -> 32 blocks,
     with every launch counter set to 0 just before and read just after; then
-    the torch engine tier on the same blocks."""
+    the torch engine tier on the same blocks. ``name`` is the kernel the
+    path must run; ``path`` names the path where it is not the kernel's own."""
+    label = path or name
     model = nam.load_model(doc)  # on the card by default
     if model.device.type != "cuda":
-        raise RuntimeError(f"{name}: load_model put the model on {model.device}")
+        raise RuntimeError(f"{label}: load_model put the model on {model.device}")
     engine = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN)  # kernel="auto"
-    log(f"main path {name}: StreamEngine(kernel='auto') chose {engine.kernel!r}")
+    log(f"main path {label}: StreamEngine(kernel='auto') chose {engine.kernel!r}")
     if engine.kernel != "fused":
-        raise RuntimeError(f"{name}: auto chose {engine.kernel!r}, expected 'fused'")
+        raise RuntimeError(f"{label}: auto chose {engine.kernel!r}, expected 'fused'")
     full, rem = engine.prewarm_plan()
     if (full, rem) != (expect_full, expect_rem):
-        raise RuntimeError(f"{name}: prewarm plan {(full, rem)} != {(expect_full, expect_rem)}")
+        raise RuntimeError(f"{label}: prewarm plan {(full, rem)} != {(expect_full, expect_rem)}")
     blocks = [randn((B_MAIN, T_MAIN), gen) for _ in range(N_BLOCKS)]  # mono, (B, T)
 
     for m in modules.values():
@@ -241,15 +289,15 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen):
 
     expect = full + (1 if rem else 0) + N_BLOCKS
     launched = counts[name]
-    log(f"main path {name}: prewarm {model.get_prewarm_samples()} samples = {full} blocks + {rem}-sample "
+    log(f"main path {label}: prewarm {model.get_prewarm_samples()} samples = {full} blocks + {rem}-sample "
         f"remainder; launches {counts}, expected {expect} of {name}")
     if launched != expect or any(v for k, v in counts.items() if k != name):
-        raise RuntimeError(f"{name}: launch counts {counts}, expected {expect} of {name} and no other")
+        raise RuntimeError(f"{label}: launch counts {counts}, expected {expect} of {name} and no other")
     y_fused = torch.stack(ys)
     if tuple(y_fused.shape) != (N_BLOCKS, B_MAIN, T_MAIN):
-        raise RuntimeError(f"{name}: main path output shape {tuple(y_fused.shape)}")
+        raise RuntimeError(f"{label}: main path output shape {tuple(y_fused.shape)}")
     if not torch.isfinite(y_fused).all():
-        raise RuntimeError(f"{name}: non-finite main path output")
+        raise RuntimeError(f"{label}: non-finite main path output")
 
     ref = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN, kernel="torch")
     rstate = ref.reset()
@@ -258,10 +306,10 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen):
         y, rstate = ref.process(x, rstate)
         yr.append(y)
     err = (y_fused - torch.stack(yr)).abs().max().item()
-    log(f"main path {name}: {N_BLOCKS} blocks, |y| max {y_fused.abs().max().item():.3f}, "
+    log(f"main path {label}: {N_BLOCKS} blocks, |y| max {y_fused.abs().max().item():.3f}, "
         f"max|fused - torch tier| = {err:.3e}")
     if not err <= ATOL:
-        raise RuntimeError(f"{name}: main path disagrees with the torch engine tier: {err:.3e} > {ATOL}")
+        raise RuntimeError(f"{label}: main path disagrees with the torch engine tier: {err:.3e} > {ATOL}")
     return model, {"B": B_MAIN, "T": T_MAIN, "blocks": N_BLOCKS, "prewarm": [full, rem],
                    "launches": launched, "max_abs_err_vs_torch_tier": err}
 
@@ -294,9 +342,10 @@ def cudnn_lstm(model, state_h, state_c):
     return run
 
 
-def time_model(nam, mod, name, model, batches, gen, smi, library=None):
+def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None):
     """Kernel (twice, in turns with the plain version), plain version, torch
     engine tier, bound and, where given, the library call, per batch size."""
+    label = path or name
     cfg, T = model.config, T_MAIN
     times = {}
     for Bt in batches:
@@ -348,7 +397,7 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None):
             "bytes": w["bytes"], "flops": w["flops"],
         }
         lib_txt = f", library {lib_ms:.4f} ms (|lib - kernel| {lib_err:.2e})" if lib_ms is not None else ""
-        log(f"time {name} B={Bt} T={T}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        log(f"time {label} B={Bt} T={T}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"torch tier {t1:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
         del ep, st, box, teng, tbox
         torch.cuda.empty_cache()
@@ -394,6 +443,7 @@ def main() -> int:
     import neuralampmodelercore_tpu_torch as nam
     from neuralampmodelercore_tpu_torch.ops import activations as act
     from neuralampmodelercore_tpu_torch.ops.cuda import convnet, lstm, stack
+    from neuralampmodelercore_tpu_torch.tools import agreement
     from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
     modules = {"stack_step": stack, "lstm_step": lstm, "convnet_step": convnet}
@@ -423,11 +473,12 @@ def main() -> int:
         report["build_s"][name] = secs
         log(f"build: {mod.LIB.source.name} -> {so.name} in {secs:.1f} s")
         for line in mod.LIB.build_log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
                 log(f"  ptxas {mod.LIB.source.name}: {line.strip()}")
     log(f"build: all {len(modules)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
 
     # -- 3. kernel vs plain -----------------------------------------------
+    features = agreement.configs()  # name -> (architecture, config, seed)
     # (key, name, config, T, B, blocks); the seed is SEED + the case's index.
     ring_cases = {
         "stack_step": ("WaveNet", stack, [
@@ -435,6 +486,8 @@ def main() -> int:
             ("flagship_T16_B2048", "flagship T=16", wavenet_preset("standard"), 16, 2048, 12),
             ("splice_T16_B2048", "offset splice", splice_config(), 16, 2048, 10),
             ("activations_T32_B1000", "all activations", activations_config(), 32, 1000, 8),
+        ] + [
+            (f"{name}_T{T}_B{B}", name, features[name][1], T, B, n) for name, T, B, n in STACK_FEATURE_CASES
         ]),
         "convnet_step": ("ConvNet", convnet, [
             ("amp_T64_B2048", "amp T=64", AMP_CONVNET, 64, 2048, 12),
@@ -462,7 +515,7 @@ def main() -> int:
     errs = {name: {} for name in modules}
     for kname, (arch, mod, cases) in ring_cases.items():
         for i, (key, name, config, T, B, n) in enumerate(cases):
-            errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i)
+            errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i, lstm)
     for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
         errs["lstm_step"][key] = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
     report["max_abs_err"] = errs
@@ -477,6 +530,10 @@ def main() -> int:
         nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen)
     main_models["convnet_step"], main["convnet_step"] = run_main_path(
         nam, modules, "convnet_step", make_nam("ConvNet", AMP_CONVNET, seed=SEED), 16, 0, gen)
+    # The stack kernel's feature paths: prewarm 5,115 and 4,113 samples.
+    for path, blocks in (("flagship_cond", 80), ("flagship_max", 65)):
+        main_models[path], main[path] = run_main_path(
+            nam, modules, "stack_step", make_nam("WaveNet", features[path][1], seed=SEED), blocks, 0, gen, path)
     report["main_path"] = main
     torch.cuda.empty_cache()
 
@@ -487,34 +544,49 @@ def main() -> int:
                                 library=cudnn_lstm),
         "convnet_step": time_model(nam, convnet, "convnet_step", main_models["convnet_step"], (2048, 8192, 32768),
                                    gen, smi),
+        **{path: time_model(nam, stack, "stack_step", main_models[path], (2048,), gen, smi, path=path)
+           for path in STACK_PATHS[1:]},
     }
     report["realtime_streams"], report["sweep_ms"] = {}, {}
-    for name, start, cap in (("stack_step", 4096, 65536), ("lstm_step", 8192, 1 << 20),
-                             ("convnet_step", 8192, 1 << 18)):
-        report["realtime_streams"][name], report["sweep_ms"][name] = realtime_sweep(
-            modules[name], name, main_models[name], start, cap, gen, smi)
+    for path, mod, start, cap in (("stack_step", stack, 4096, 65536), ("lstm_step", lstm, 8192, 1 << 20),
+                                  ("convnet_step", convnet, 8192, 1 << 18), ("flagship_cond", stack, 1024, 65536),
+                                  ("flagship_max", stack, 1024, 65536)):
+        report["realtime_streams"][path], report["sweep_ms"][path] = realtime_sweep(
+            mod, path, main_models[path], start, cap, gen, smi)
 
-    # -- 6. result lines ------------------------------------------------------
+    # -- 6. agreement sweep: every kernel config against the torch tier -------
+    agree_dir = os.path.join(os.path.dirname(args.out) or ".", "agreement") if args.out else "build/agreement"
+    report["agreement"] = agreement.sweep(out=agree_dir, log=log)
+    bad = [k for k, r in report["agreement"].items() if not r["ok"]]
+    log(f"agreement: {len(report['agreement']) - len(bad)}/{len(report['agreement'])} configs within {ATOL} "
+        f"(8 blocks, B=256 and 512, T=64; JSON per config in {agree_dir})")
+    if bad:
+        raise RuntimeError(f"agreement sweep: {bad} disagree with the torch engine tier beyond {ATOL}")
+
+    # -- 7. result lines ------------------------------------------------------
+    def numbers(path):
+        t = report["times"][path][B_MAIN]
+        return {"launches": main[path]["launches"], "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
     kernels = []
     for name in modules:
-        t = report["times"][name][B_MAIN]
         replaces, counterpart = REPLACES[name]
-        kernels.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"neuralampmodelercore_tpu_torch/csrc/{modules[name].LIB.source.name}",
             "replaces": replaces,
             "tpu_counterpart": counterpart,
-            "launches": main[name]["launches"],
+            **numbers(name),
             "max_abs_err": max(errs[name].values()),
-            "ms": min(t["kernel_ms"]),
-            "kernel_ms": min(t["kernel_ms"]),
-            "plain_ms": min(t["plain_ms"]),
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
             "shape": {"B": B_MAIN, "T": T_MAIN},
-        })
+        }
+        entry["kernel_ms"] = entry["ms"]
+        if name == "stack_step":
+            # The entry's numbers are the flagship path's; each path's own under "paths".
+            entry["paths"] = {path: numbers(path) for path in STACK_PATHS}
+        kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"chip_smoke: {report['seconds']:.1f} s  [{smi}]")

@@ -11,8 +11,10 @@ chunked-FIFO rings with O(T) traffic per block, and prepares its weights once.
 
 Kernel tiers:
   - "fused": the architecture's hand-written CUDA kernel (ops/cuda/stack.py,
-    lstm.py or convnet.py, chosen by ``backend_for``), one launch per block;
-    on a CPU model it runs the kernel's plain version;
+    lstm.py or convnet.py, chosen by ``backend_for``), one launch per block
+    (a WaveNet whose condition DSP is an LSTM or a ConvNet runs that
+    model's kernel first); on a CPU model it runs the kernel's plain
+    version;
   - "torch": the per-op engine step (the architecture's ``engine_step``);
   - "auto": "fused" when the model is on a CUDA device and the kernel's
     ``supports`` passes, else "torch".

@@ -1,11 +1,29 @@
 """Fused WaveNet stack step: the hand-written CUDA kernel and its plain version.
 
 Replaces the TPU kernel ``_make_kernel`` of ``neuralampmodelercore_tpu/ops/
-pallas/stack.py`` (its ``step`` reaches ``pl.pallas_call`` at stack.py:1769)
-on its plain path, K1a in ROADMAP.md: every layer array and layer of one
-block in one launch, with the state updated in place. The kernel is
-``csrc/stack.cu``; its header says what bounds it on an H100 and how the
-design answers that.
+pallas/stack.py`` (its ``step`` reaches ``pl.pallas_call`` at stack.py:1769),
+K1a-K1e in ROADMAP.md: every net, layer array and layer of one block in one
+launch, with the state updated in place. The kernel is ``csrc/stack.cu``; its
+header says what bounds it on an H100 and how the design answers that.
+
+What one launch runs (the JAX kernel's features, ``_build_plan`` stack.py:
+625-909):
+
+  - per layer: the dilated conv with ``conv_out`` = 2 * bottleneck rows when
+    the layer is gated or blended, the input mixin, the activation or the
+    gated / blended pair with its secondary activation (per-channel PReLU
+    slopes included), layer1x1 (bottleneck -> channels), head1x1, and FiLM
+    at any of the 8 sites (``FILM_SITES``);
+  - per array: the head rechannel, a conv of any kernel size and dilation
+    with rf <= T, its input history carried in the state;
+  - per net: ``head_scale``, then the post-stack head (activation -> Conv1D,
+    each conv with carried history);
+  - nets: a chain of WaveNet condition DSPs runs in the same launch, deepest
+    first, each on the raw input, each net's output the next net's
+    condition (``_fused_chain`` stack.py:385-401). A condition DSP that is
+    not a WaveNet runs first as a pre-pass through its own backend (its
+    kernel when that kernel's ``supports`` passes on the card, else its
+    torch engine tier); its output is the kernel's second input.
 
 Engine-facing API (mirrors ``models.wavenet.engine_prepare/engine_step``):
 
@@ -14,10 +32,11 @@ Engine-facing API (mirrors ``models.wavenet.engine_prepare/engine_step``):
     y, state = step(cfg, T, eparams, state, x)   # x (Cin, T, B) -> y (Cout, T, B)
 
 State is one flat float32 buffer holding a ring of M = rf // T + 2 whole
-blocks, (M, C, T, B), for every layer with a receptive field, plus the block
-counter ``n``: a host integer that wraps at the LCM of the ring sizes, so slot
-indices need no device round trip. ``step`` writes the rings in place: the
-state passed in is consumed.
+blocks, (M, C, T, B), for every conv with a receptive field (layers, head
+rechannels, post-head convs), plus the block counter ``n``: a host integer
+that wraps at the LCM of the ring sizes, so slot indices need no device
+round trip; and, with a pre-pass, the condition model's own state. ``step``
+writes the rings in place: the state passed in is consumed.
 
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain``, the same step on the same state layout in plain torch.
@@ -29,7 +48,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,71 +60,27 @@ from . import _build
 launches = 0
 
 MAX_T = 512  # one thread per (frame, stream); at most 512 threads per CTA
-MAX_CHANNELS = 32
-MAX_IN_CHANNELS = 4  # SMAX in stack.cu
+MAX_CHANNELS = 32  # register tile; a gated layer's conv has 2 * bottleneck rows
+MAX_IN_CHANNELS = 4  # SMAX in stack.cu: input and condition channels
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 
-# Activation codes, as the enum in stack.cu.
+# Activation codes, as the enum in activations.cuh; per-channel PReLU is stack.cu's own.
 ACT_CODES = {
     "Identity": 0, "Tanh": 1, "ReLU": 2, "Sigmoid": 3, "Hardtanh": 4,
     "LeakyReLU": 5, "PReLU": 5, "SiLU": 6, "Softsign": 7, "Hardswish": 8,
     "Fasttanh": 9, "LeakyHardtanh": 10,
 }
+ACT_PRELU_CHANNELS = 11  # PReLU with one slope per channel
+GATING_CODES = {"none": 0, "gated": 1, "blended": 2}
 
 # Plan layout, as the constants in stack.cu.
-P_HEADER, AF, LF = 8, 10, 10
+P_HEADER, NF, AF, TF, LF = 8, 8, 10, 10, 34
+N_FILM = 8  # FiLM sites, in FILM_SITES order
 
 
 # =============================================================================
 # Gate
 # =============================================================================
-
-
-def supports(cfg, T: int, batch: int) -> Optional[str]:
-    """None if the kernel runs this (config, block size, batch), else why not.
-    Everything beyond K1a names the ROADMAP item that brings it."""
-    from ...models.wavenet import NONE, WaveNetConfig
-
-    if not isinstance(cfg, WaveNetConfig):
-        return f"not a WaveNetConfig: {type(cfg).__name__}"
-    if batch < 1:
-        return f"batch {batch} < 1"
-    if not 1 <= T <= MAX_T:
-        return f"block size T={T} outside 1..{MAX_T} (one thread per frame and stream)"
-    if cfg.condition_config is not None:
-        return "condition DSP (ROADMAP K1e)"
-    if cfg.head is not None:
-        return "post-stack head (ROADMAP K1d)"
-    if act.using_fast_tanh:
-        return "fast-tanh mode is on (ROADMAP K1f)"
-    if act.lut_active():
-        return "LUT activation mode is on (ROADMAP K1f)"
-    if cfg.in_channels > MAX_IN_CHANNELS:
-        return f"in_channels {cfg.in_channels} > {MAX_IN_CHANNELS}"
-    for ai, ac in enumerate(cfg.layer_arrays):
-        where = f"array {ai}"
-        if any(g != NONE for g in ac.gating_modes):
-            return f"{where}: gated or blended layers (ROADMAP K1b)"
-        if ac.bottleneck != ac.channels:
-            return f"{where}: bottleneck != channels (ROADMAP K1b)"
-        if ac.head1x1_active:
-            return f"{where}: head1x1 (ROADMAP K1b)"
-        if any(site.active for _, site in ac.films):
-            return f"{where}: FiLM (ROADMAP K1c)"
-        if ac.head_kernel_size != 1:
-            return f"{where}: head rechannel kernel_size {ac.head_kernel_size} > 1 (ROADMAP K1d)"
-        if ac.condition_size != cfg.in_channels:
-            return f"{where}: condition_size {ac.condition_size} != in_channels {cfg.in_channels}"
-        if ac.channels > MAX_CHANNELS or ac.head_size > MAX_CHANNELS:
-            return f"{where}: more than {MAX_CHANNELS} channels"
-        for li, a in enumerate(ac.activations):
-            if a.type not in ACT_CODES:
-                return f"{where} layer {li}: activation {a.type} not in the kernel"
-            if a.type == "PReLU" and len(act.prelu_slopes(a)) > 1:
-                return f"{where} layer {li}: per-channel PReLU not in the kernel"
-    if _smem_bytes(cfg, T) > SMEM_LIMIT:
-        return f"shared memory {_smem_bytes(cfg, T)} B > {SMEM_LIMIT} B at T={T}"
-    return None
 
 
 def _pad4(c: int) -> int:
@@ -120,25 +95,203 @@ def _streams_per_cta(T: int) -> int:
     return max(1, min(32, 512 // T))
 
 
-def _seg_len(K: int, C: int, S: int, l1: bool) -> int:
-    CP = _pad4(C)
-    n = K * C * CP + CP + S * CP + (CP * CP + CP if l1 else 0) + 4
-    return -(-n // 4) * 4
+def _act_reason(a, rows: int) -> Optional[str]:
+    if a.type not in ACT_CODES:
+        return f"activation {a.type} not in the kernel"
+    if a.type == "PReLU" and rows % len(act.prelu_slopes(a)):
+        return f"PReLU with {len(act.prelu_slopes(a))} slopes on {rows} channels"
+    return None
 
 
-def _smem_bytes(cfg, T: int) -> int:
-    seg_max = max(
-        _seg_len(k, ac.channels, ac.condition_size, ac.layer1x1_active)
-        for ac in cfg.layer_arrays
-        for k in ac.kernel_sizes
-    )
-    c_max = max(ac.channels for ac in cfg.layer_arrays)
-    return 4 * (2 * seg_max + 2 * c_max * T * _streams_per_cta(T))
+def _net_reason(cfg, T: int, S: int) -> Optional[str]:
+    """Why the kernel cannot run this WaveNet as one net with condition width
+    S, or None. Covers everything but the condition DSP and the batch."""
+    from ...models.wavenet import NONE, head_conv_specs
+
+    if cfg.in_channels > MAX_IN_CHANNELS:
+        return f"in_channels {cfg.in_channels} > {MAX_IN_CHANNELS}"
+    if S > MAX_IN_CHANNELS:
+        return f"condition channels {S} > {MAX_IN_CHANNELS}"
+    for ai, ac in enumerate(cfg.layer_arrays):
+        where = f"array {ai}"
+        if ac.condition_size != S:
+            return f"{where}: condition_size {ac.condition_size} != the condition's {S} channels"
+        rows = max([ac.input_size, ac.channels, ac.head_size, ac.head_output_size]
+                   + [ac.conv_out_channels(li) for li in range(ac.num_layers)])
+        if rows > MAX_CHANNELS:
+            return f"{where}: more than {MAX_CHANNELS} channels (a gated layer's conv counts 2 * bottleneck rows)"
+        hr_rf = (ac.head_kernel_size - 1) * ac.head_dilation
+        if hr_rf > T:
+            return f"{where}: head rechannel receptive field {hr_rf} > T={T}"
+        if ai + 1 < len(cfg.layer_arrays) and cfg.layer_arrays[ai + 1].head_output_size != ac.head_size:
+            return f"{where}: head_size {ac.head_size} != the next array's head accumulator width"
+        for li in range(ac.num_layers):
+            bn = ac.bottleneck if ac.gating_modes[li] != NONE else ac.conv_out_channels(li)
+            reason = _act_reason(ac.activations[li], bn)
+            if reason is None and ac.gating_modes[li] != NONE:
+                reason = _act_reason(ac.secondary_activations[li], bn)
+            if reason is not None:
+                return f"{where} layer {li}: {reason}"
+    if cfg.head is not None:
+        for spec in head_conv_specs(cfg.head):
+            if spec.kernel_size - 1 > T:
+                return f"post-stack head conv receptive field {spec.kernel_size - 1} > T={T}"
+            if max(spec.in_channels, spec.out_channels) > MAX_CHANNELS:
+                return f"post-stack head: more than {MAX_CHANNELS} channels"
+            reason = _act_reason(cfg.head.activation, spec.in_channels)
+            if reason is not None:
+                return f"post-stack head: {reason}"
+    return None
+
+
+def _fused_chain(cfg, T: int) -> Optional[Tuple]:
+    """The nested WaveNet condition DSPs, deepest first, when every one of
+    them fuses into the launch as a prelude net; () without a condition DSP;
+    None when the condition DSP runs as a pre-pass (stack.py:385-401)."""
+    from ...models.wavenet import WaveNetConfig
+
+    chain = []
+    c = cfg.condition_config
+    while c is not None:
+        if not isinstance(c, WaveNetConfig):
+            return None
+        chain.append(c)
+        c = c.condition_config
+    chain.reverse()
+    S = chain[0].in_channels if chain else 0
+    for c in chain:
+        if _net_reason(c, T, S) is not None:
+            return None
+        S = c.out_channels_
+    return tuple(chain)
+
+
+def cond_mode(cfg, T: int) -> str:
+    """'none' | 'fused' (the condition chain runs inside the launch) |
+    'prepass' (the condition model runs first; its output is the kernel's
+    second input), as ``cond_mode`` in the JAX package (stack.py:404-409)."""
+    if cfg.condition_config is None:
+        return "none"
+    return "fused" if _fused_chain(cfg, T) is not None else "prepass"
+
+
+def _net_configs(cfg, T: int) -> Tuple[List, int]:
+    """The WaveNets the launch runs, deepest condition first, and the width
+    of the pre-pass condition input (0 without a pre-pass)."""
+    chain = _fused_chain(cfg, T)
+    if chain is None:
+        return [cfg], cfg.layer_arrays[0].condition_size
+    return list(chain) + [cfg], 0
+
+
+def supports(cfg, T: int, batch: int) -> Optional[str]:
+    """None if the kernel runs this (config, block size, batch), else why not:
+    the ROADMAP item that still refuses it (K1f), or the limit that does."""
+    from ...models.wavenet import WaveNetConfig
+
+    if not isinstance(cfg, WaveNetConfig):
+        return f"not a WaveNetConfig: {type(cfg).__name__}"
+    if batch < 1:
+        return f"batch {batch} < 1"
+    if not 1 <= T <= MAX_T:
+        return f"block size T={T} outside 1..{MAX_T} (one thread per frame and stream)"
+    if act.using_fast_tanh:
+        return "fast-tanh mode is on (ROADMAP K1f)"
+    if act.lut_active():
+        return "LUT activation mode is on (ROADMAP K1f)"
+    # The fused chain's nets passed _net_reason in _fused_chain; the model's
+    # condition is the pre-pass output, the last chain net's or the input.
+    nets, S_ext = _net_configs(cfg, T)
+    S = S_ext or (nets[-2].out_channels_ if len(nets) > 1 else cfg.in_channels)
+    reason = _net_reason(cfg, T, S)
+    if reason is not None:
+        return reason
+    smem = _smem_bytes(nets, T)
+    if smem > SMEM_LIMIT:
+        return f"shared memory {smem} B > {SMEM_LIMIT} B at T={T}"
+    return None
 
 
 # =============================================================================
 # Layout: packed weights, plan and state offsets
 # =============================================================================
+
+
+def _array_tile(ac) -> int:
+    """Register tile of an array: its channels, bottleneck, conv rows and
+    head1x1 rows. A gated layer's two halves sit at [0, bn) and [CP/2,
+    CP/2 + bn): CP >= 2 bn, a power of two, so CP/2 >= bn."""
+    rows = [ac.channels, ac.bottleneck] + [ac.conv_out_channels(li) for li in range(ac.num_layers)]
+    if ac.head1x1_active:
+        rows.append(ac.head1x1_out_channels)
+    return _pad4(max(rows))
+
+
+def _segment_parts(ac, li: int, CP: int) -> List[Tuple[str, int]]:
+    """(name, floats) of a layer's weight segment, in order; every part a
+    multiple of 4 floats, so each starts 16-byte aligned."""
+    from ...models.wavenet import FILM_SITES, layer_film_spec
+
+    K, C, S = ac.kernel_sizes[li], ac.channels, ac.condition_size
+    parts = [("conv", K * C * CP), ("b", CP), ("mix", S * CP)]
+    if ac.layer1x1_active:
+        parts += [("l1", CP * CP), ("l1b", CP)]
+    if ac.head1x1_active:
+        parts += [("h1", CP * CP), ("h1b", CP)]
+    parts += [("prm1", CP), ("prm2", CP)]
+    for site in FILM_SITES:
+        spec = layer_film_spec(ac, li, site)
+        if spec is not None:
+            W = MAX_IN_CHANNELS if site == "input_mixin_pre_film" else CP
+            parts.append((site, (2 if spec.shift else 1) * (S * W + W)))
+    return parts
+
+
+def _tail_specs(cfg) -> List[Tuple[int, int, int]]:
+    """(K, d, cin) of each conv with carried history outside the layers:
+    head rechannels, then post-stack head convs."""
+    from ...models.wavenet import head_conv_specs
+
+    out = [(ac.head_kernel_size, ac.head_dilation, ac.head_output_size) for ac in cfg.layer_arrays]
+    if cfg.head is not None:
+        out += [(s.kernel_size, s.dilation, s.in_channels) for s in head_conv_specs(cfg.head)]
+    return out
+
+
+def _smem_sizes(nets) -> Tuple[int, int]:
+    """(largest weight segment in floats, rows of the shared input buffer)."""
+    seg_max = max(
+        (sum(n for _, n in _segment_parts(ac, li, _array_tile(ac)))
+         for cfg in nets for ac in cfg.layer_arrays for li in range(ac.num_layers)),
+        default=4,
+    )
+    rows = [ac.channels for cfg in nets for ac in cfg.layer_arrays]
+    rows += [cin for cfg in nets for K, _, cin in _tail_specs(cfg) if K > 1]
+    return seg_max, max(rows)
+
+
+def _smem_bytes(nets, T: int) -> int:
+    """Two weight segments, and the double-buffered (rows, T, streams) input
+    of the layer (or of a tail conv) that neighbouring frames' taps read."""
+    seg_max, rows = _smem_sizes(nets)
+    return 4 * (2 * seg_max + 2 * rows * T * _streams_per_cta(T))
+
+
+@dataclasses.dataclass(frozen=True)
+class TailLayout:
+    """A conv with carried history outside the layer loop: a head rechannel
+    or a post-stack head conv, (K * cin, cout) weights row-major."""
+
+    K: int
+    d: int
+    cin: int
+    cout: int
+    w: int
+    b: int  # -1: no bias
+    M: int  # ring slots; 0 => no ring (rf == 0)
+    ring: int
+    act: int  # activation code applied to the input first (post head), -1 none
+    prm: int  # its parameters (MAX_CHANNELS floats), -1 none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,8 +302,11 @@ class LayerLayout:
     ring: int  # float offset of the (M, C, T, B) ring in the state buffer
     seg: int  # float offset of the weight segment
     seg_len: int
-    activation: Any  # ActivationConfig
-    l1: bool
+    gating: int  # GATING_CODES
+    act1: int
+    act2: int
+    offs: Dict[str, int]  # part -> float offset inside the segment (absent: inactive)
+    shifts: Tuple[bool, ...]  # per FiLM site
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,12 +314,21 @@ class ArrayLayout:
     C: int
     CP: int
     I: int
-    HS: int
+    HI: int  # head accumulator rows (head_output_size)
+    HS: int  # head rechannel output rows (head_size)
     rech: int  # (C, I)
-    hr: int  # (HS, C)
-    hr_b: int  # (HS,) or -1
-    first: int
+    first: int  # global index of the first layer
     layers: Tuple[LayerLayout, ...]
+    hr: TailLayout
+
+
+@dataclasses.dataclass(frozen=True)
+class NetLayout:
+    S: int  # condition width
+    Cout: int
+    head_scale: int
+    arrays: Tuple[ArrayLayout, ...]
+    pheads: Tuple[TailLayout, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,17 +338,25 @@ class Layout:
     BS: int
     Cin: int
     Cout: int
+    S_ext: int  # width of the pre-pass condition input, 0 if none
     c_max: int  # register tile of the kernel instance (4/8/16/32)
-    head_scale: int
     seg_max: int
     state_size: int
     wrap: int
     smem_bytes: int
-    arrays: Tuple[ArrayLayout, ...]
+    nets: Tuple[NetLayout, ...]
+
+    @property
+    def arrays(self) -> Tuple[ArrayLayout, ...]:
+        return tuple(a for net in self.nets for a in net.arrays)
 
     @property
     def layers(self) -> Tuple[LayerLayout, ...]:
-        return tuple(lp for ap in self.arrays for lp in ap.layers)
+        return tuple(lp for a in self.arrays for lp in a.layers)
+
+    @property
+    def tails(self) -> Tuple[TailLayout, ...]:
+        return tuple(a.hr for a in self.arrays) + tuple(t for net in self.nets for t in net.pheads)
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -191,7 +364,8 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _dense_1x1(p: Dict) -> np.ndarray:
-    """Dense (in, out) weight of conv1x1 params (depthwise -> diagonal)."""
+    """Dense (in, out) weight of conv1x1 params (depthwise -> diagonal;
+    grouped weights are stored dense block-diagonal)."""
     return np.diag(_np(p["dw"])) if "dw" in p else _np(p["w"])
 
 
@@ -218,9 +392,82 @@ def _act_params(a) -> List[float]:
     return [0.0, 0.0, 0.0, 0.0]
 
 
+def _act_code_prm(a, rows: int, width: int) -> Tuple[int, np.ndarray]:
+    """Kernel code and ``width`` parameter floats of an activation applied to
+    ``rows`` channels: per-channel PReLU slopes repeat along the channels
+    (channel c takes slope c mod n, as ``activations.apply``)."""
+    prm = np.zeros(width, np.float32)
+    slopes = act.prelu_slopes(a) if a.type == "PReLU" else ()
+    if len(slopes) > 1:
+        prm[:rows] = [slopes[c % len(slopes)] for c in range(rows)]
+        return ACT_PRELU_CHANNELS, prm
+    prm[:4] = _act_params(a)
+    return ACT_CODES[a.type], prm
+
+
+def _layer_parts(ac, li: int, lp: Dict, CP: int):
+    """A layer's weight segment parts (as ``_segment_parts`` names them),
+    padded to the register tile, and its activation codes and FiLM shift
+    flags. A gated or blended layer's conv rows go [top | bottom] at [0, bn)
+    and [CP/2, CP/2 + bn)."""
+    from ...models.wavenet import FILM_SITES, NONE, layer_film_spec
+
+    K, C, S, bn = ac.kernel_sizes[li], ac.channels, ac.condition_size, ac.bottleneck
+    gating = ac.gating_modes[li]
+    conv_out = ac.conv_out_channels(li)
+    # Row of each conv output: a gated layer's second half goes to CP/2.
+    pos = np.arange(conv_out)
+    if gating != NONE:
+        pos = np.where(pos < bn, pos, CP // 2 + pos - bn)
+    act_rows = conv_out if gating == NONE else bn
+    parts: Dict[str, np.ndarray] = {}
+    conv = np.zeros((K * C, CP), np.float32)
+    conv[:, pos] = _dense_conv(lp["conv"]).reshape(K * C, conv_out)
+    parts["conv"] = conv
+    parts["b"] = np.zeros(CP, np.float32)
+    parts["b"][pos] = _np(lp["conv"]["b"])
+    parts["mix"] = np.zeros((S, CP), np.float32)
+    parts["mix"][:, pos] = _dense_1x1(lp["mixin"])
+    if ac.layer1x1_active:
+        parts["l1"] = np.zeros((CP, CP), np.float32)
+        parts["l1"][:bn, :C] = _dense_1x1(lp["layer1x1"])  # (bn, C)
+        parts["l1b"] = np.zeros(CP, np.float32)
+        parts["l1b"][:C] = _np(lp["layer1x1"]["b"])
+    if ac.head1x1_active:
+        HO = ac.head1x1_out_channels
+        parts["h1"] = np.zeros((CP, CP), np.float32)
+        parts["h1"][:bn, :HO] = _dense_1x1(lp["head1x1"])  # (bn, HO)
+        parts["h1b"] = np.zeros(CP, np.float32)
+        parts["h1b"][:HO] = _np(lp["head1x1"]["b"])
+    act1, parts["prm1"] = _act_code_prm(ac.activations[li], act_rows, CP)
+    act2, parts["prm2"] = _act_code_prm(ac.secondary_activations[li], act_rows, CP)
+    shifts = []
+    for site in FILM_SITES:
+        spec = layer_film_spec(ac, li, site)
+        shifts.append(bool(spec is not None and spec.shift))
+        if spec is None:
+            continue
+        dim = spec.input_dim
+        W = MAX_IN_CHANNELS if site == "input_mixin_pre_film" else CP
+        rows = pos if site in ("conv_post_film", "input_mixin_post_film", "activation_pre_film") \
+            else np.arange(dim)
+        dense = _dense_1x1(lp[site])  # (S, (2 if shift else 1) * dim)
+        bias = _np(lp[site]["b"])
+        film = []
+        for h in range(2 if spec.shift else 1):  # scale, then shift
+            fw, fb = np.zeros((S, W), np.float32), np.zeros(W, np.float32)
+            fw[:, rows] = dense[:, h * dim : (h + 1) * dim]
+            fb[rows] = bias[h * dim : (h + 1) * dim]
+            film += [fw.reshape(-1), fb]
+        parts[site] = np.concatenate(film)
+    return parts, act1, act2, tuple(shifts)
+
+
 def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
-    """Pack every weight into one flat float32 array (each segment 16-byte
+    """Pack every weight into one flat float32 array (each part 16-byte
     aligned) and assign ring offsets in the flat state buffer."""
+    from ...models.wavenet import head_conv_specs
+
     chunks: List[np.ndarray] = []
     size = 0
 
@@ -233,83 +480,141 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
         size += a.size + pad
         return off
 
-    S = cfg.in_channels
     state_size = 0
     wrap = 1
-    arrays: List[ArrayLayout] = []
+
+    def ring(K: int, d: int, rows: int) -> Tuple[int, int]:
+        nonlocal state_size, wrap
+        rf = (K - 1) * d
+        if rf == 0:
+            return 0, 0
+        M = rf // T + 2
+        off = state_size
+        state_size += M * rows * T * batch
+        wrap = wrap * M // math.gcd(wrap, M)
+        return M, off
+
+    def tail(p: Dict, K: int, d: int, cin: int, cout: int, act_cfg=None) -> TailLayout:
+        w = put(_dense_conv(p).reshape(K * cin, cout))
+        b = put(_np(p["b"])) if "b" in p else -1
+        M, off = ring(K, d, cin)
+        code, prm = -1, -1
+        if act_cfg is not None:
+            code, prm_a = _act_code_prm(act_cfg, cin, MAX_CHANNELS)
+            prm = put(prm_a)
+        return TailLayout(K=K, d=d, cin=cin, cout=cout, w=w, b=b, M=M, ring=off, act=code, prm=prm)
+
+    # The fused condition chain, deepest first, then the model itself.
+    net_cfgs, S_ext = _net_configs(cfg, T)
+    net_params = [params]
+    for _ in net_cfgs[1:]:
+        net_params.insert(0, net_params[0]["condition"])
+    nets: List[NetLayout] = []
     n_layers = 0
-    for ai, ac in enumerate(cfg.layer_arrays):
-        ap = params["arrays"][ai]
-        C, CP = ac.channels, _pad4(ac.channels)
-        rech = put(_dense_1x1(ap["rechannel"]).T)  # (C, I)
-        layers: List[LayerLayout] = []
-        for li in range(ac.num_layers):
-            lp = ap["layers"][li]
-            K, d = ac.kernel_sizes[li], ac.dilations[li]
-            w = _dense_conv(lp["conv"])  # (K, C, C) = (k, in c, out o)
-            seg = [np.zeros((K * C, CP), np.float32), np.zeros(CP, np.float32), np.zeros((S, CP), np.float32)]
-            seg[0][:, :C] = w.reshape(K * C, C)
-            seg[1][:C] = _np(lp["conv"]["b"])
-            seg[2][:, :C] = _dense_1x1(lp["mixin"])  # (S, C)
-            if ac.layer1x1_active:
-                l1 = np.zeros((CP, CP), np.float32)
-                l1[:C, :C] = _dense_1x1(lp["layer1x1"])  # (in o, out c)
-                l1b = np.zeros(CP, np.float32)
-                l1b[:C] = _np(lp["layer1x1"]["b"])
-                seg += [l1, l1b]
-            seg.append(np.asarray(_act_params(ac.activations[li]), np.float32))
-            flat = np.concatenate([s.reshape(-1) for s in seg])
-            seg_off = put(flat)
-            rf = (K - 1) * d
-            M = rf // T + 2 if rf > 0 else 0
-            ring = state_size
-            state_size += M * C * T * batch
-            if M:
-                wrap = wrap * M // math.gcd(wrap, M)
-            layers.append(
-                LayerLayout(
-                    K=K, d=d, M=M, ring=ring, seg=seg_off,
-                    seg_len=_seg_len(K, C, S, ac.layer1x1_active),
-                    activation=ac.activations[li], l1=ac.layer1x1_active,
-                )
+    for ncfg, nparams in zip(net_cfgs, net_params):
+        S = ncfg.layer_arrays[0].condition_size
+        arrays: List[ArrayLayout] = []
+        for ai, ac in enumerate(ncfg.layer_arrays):
+            ap = nparams["arrays"][ai]
+            C, CP = ac.channels, _array_tile(ac)
+            rech = put(_dense_1x1(ap["rechannel"]).T)  # (C, I)
+            layers: List[LayerLayout] = []
+            for li in range(ac.num_layers):
+                lp = ap["layers"][li]
+                K, d = ac.kernel_sizes[li], ac.dilations[li]
+                parts, act1, act2, shifts = _layer_parts(ac, li, lp, CP)
+                offs, flat, at = {}, [], 0
+                for name, n in _segment_parts(ac, li, CP):
+                    a = parts[name].reshape(-1)
+                    assert a.size == n, (name, a.size, n)
+                    offs[name] = at
+                    flat.append(a)
+                    at += n
+                M, roff = ring(K, d, C)
+                layers.append(LayerLayout(
+                    K=K, d=d, M=M, ring=roff, seg=put(np.concatenate(flat)), seg_len=at,
+                    gating=GATING_CODES[ac.gating_modes[li]], act1=act1, act2=act2, offs=offs, shifts=shifts,
+                ))
+            hr = tail(ap["head_rechannel"], ac.head_kernel_size, ac.head_dilation, ac.head_output_size, ac.head_size)
+            arrays.append(ArrayLayout(
+                C=C, CP=CP, I=ac.input_size, HI=ac.head_output_size, HS=ac.head_size, rech=rech,
+                first=n_layers, layers=tuple(layers), hr=hr,
+            ))
+            n_layers += len(layers)
+        head_scale = put(np.asarray([float(_np(nparams["head_scale"]))], np.float32))
+        pheads = ()
+        if ncfg.head is not None:
+            pheads = tuple(
+                tail(nparams["head"][si], s.kernel_size, s.dilation, s.in_channels, s.out_channels,
+                     ncfg.head.activation)
+                for si, s in enumerate(head_conv_specs(ncfg.head))
             )
-        hr_p = ap["head_rechannel"]
-        hr = put(_dense_conv(hr_p)[0].T)  # (HS, C)
-        hr_b = put(_np(hr_p["b"])) if "b" in hr_p else -1
-        arrays.append(
-            ArrayLayout(
-                C=C, CP=CP, I=ac.input_size, HS=ac.head_size, rech=rech, hr=hr, hr_b=hr_b,
-                first=n_layers, layers=tuple(layers),
-            )
-        )
-        n_layers += len(layers)
-    head_scale = put(np.asarray([float(_np(params["head_scale"]))], np.float32))
-    c_max = _pad4(max([a.CP for a in arrays] + [a.HS for a in arrays] + [cfg.in_channels]))
+        nets.append(NetLayout(S=S, Cout=ncfg.out_channels_, head_scale=head_scale, arrays=tuple(arrays),
+                              pheads=pheads))
+    seg_max = _smem_sizes(net_cfgs)[0]
+    widths = [cfg.in_channels, S_ext] + [n.S for n in nets]
+    widths += [w for n in nets for a in n.arrays for w in (a.CP, a.I, a.HI, a.HS)]
+    widths += [w for n in nets for t in n.pheads for w in (t.cin, t.cout)]
     layout = Layout(
-        T=T, B=batch, BS=_streams_per_cta(T), Cin=cfg.in_channels, Cout=cfg.out_channels_,
-        c_max=c_max, head_scale=head_scale,
-        seg_max=max((lp.seg_len for a in arrays for lp in a.layers), default=4),
-        state_size=state_size, wrap=wrap, smem_bytes=_smem_bytes(cfg, T),
-        arrays=tuple(arrays),
+        T=T, B=batch, BS=_streams_per_cta(T), Cin=cfg.in_channels, Cout=cfg.out_channels_, S_ext=S_ext,
+        c_max=_pad4(max(widths)), seg_max=seg_max, state_size=state_size, wrap=wrap,
+        smem_bytes=_smem_bytes(net_cfgs, T), nets=tuple(nets),
     )
     return layout, np.concatenate(chunks)
 
 
 def _pack_plan(layout: Layout) -> np.ndarray:
-    """The int64 plan the kernel reads (field order as in stack.cu)."""
-    n_layers = len(layout.layers)
-    plan = np.zeros(P_HEADER + AF * len(layout.arrays) + LF * n_layers, np.int64)
-    plan[:7] = [len(layout.arrays), layout.Cin, layout.Cout, layout.head_scale,
-                layout.seg_max, n_layers, layout.c_max]
-    for ai, a in enumerate(layout.arrays):
-        base = P_HEADER + AF * ai
-        plan[base : base + 9] = [a.C, a.CP, a.I, a.HS, a.rech, a.hr, a.hr_b, a.first, len(a.layers)]
-    base = P_HEADER + AF * len(layout.arrays)
-    for g, lp in enumerate(layout.layers):
-        plan[base + LF * g : base + LF * g + 8] = [
-            lp.K, lp.d, lp.M, lp.ring, lp.seg, lp.seg_len, ACT_CODES[lp.activation.type], int(lp.l1)
-        ]
+    """The int64 plan the kernel reads (field order as in stack.cu): header,
+    nets, arrays, tail convs, layers."""
+    from ...models.wavenet import FILM_SITES
+
+    arrays, tails, layers = layout.arrays, layout.tails, layout.layers
+    tail_index = {id(t): i for i, t in enumerate(tails)}
+    plan = np.zeros(P_HEADER + NF * len(layout.nets) + AF * len(arrays) + TF * len(tails) + LF * len(layers),
+                    np.int64)
+    plan[:P_HEADER] = [len(layout.nets), len(arrays), len(tails), len(layers), layout.Cin, layout.Cout,
+                       layout.seg_max, layout.S_ext]
+    at, first_array = P_HEADER, 0
+    for net in layout.nets:
+        ph = [tail_index[id(t)] for t in net.pheads]
+        plan[at : at + 7] = [first_array, len(net.arrays), net.S, net.Cout, net.head_scale,
+                             ph[0] if ph else 0, len(ph)]
+        at += NF
+        first_array += len(net.arrays)
+    for a in arrays:
+        plan[at : at + 9] = [a.C, a.CP, a.I, a.HI, a.HS, a.rech, a.first, len(a.layers), tail_index[id(a.hr)]]
+        at += AF
+    for t in tails:
+        plan[at : at + TF] = [t.K, t.d, t.cin, t.cout, t.w, t.b, t.M, t.ring, t.act, t.prm]
+        at += TF
+    for lp in layers:
+        o = lp.offs
+        plan[at : at + 17] = [lp.K, lp.d, lp.M, lp.ring, lp.seg, lp.seg_len, lp.act1, lp.act2, lp.gating,
+                              o["b"], o["mix"], o.get("l1", -1), o.get("l1b", -1), o.get("h1", -1),
+                              o.get("h1b", -1), o["prm1"], o["prm2"]]
+        plan[at + 17 : at + 17 + N_FILM] = [o.get(site, -1) for site in FILM_SITES]
+        plan[at + 17 + N_FILM : at + 17 + 2 * N_FILM] = lp.shifts
+        # Whether the layer uses gating, FiLM or head1x1 (else the kernel's short branch).
+        plan[at + 17 + 2 * N_FILM] = int(lp.gating != 0 or "h1" in o or any(s in o for s in FILM_SITES))
+        at += LF
     return plan
+
+
+def _prepass_fns(sub_cfg, T: int, batch: int, device: torch.device):
+    """(prepare, step) of a pre-pass condition model, by the auto rule: its
+    kernel when it has one that runs this config on the card, else its torch
+    engine tier (which runs on the card too)."""
+    from ... import registry
+    from . import backend_for
+
+    if device.type == "cuda":
+        try:
+            backend = backend_for(sub_cfg)
+        except NotImplementedError:
+            backend = None
+        if backend is not None and backend.supports(sub_cfg, T, batch) is None:
+            return backend.prepare, backend.step
+    return registry.engine_fns(registry.arch_for_config(sub_cfg))
 
 
 def prepare(cfg, params, T: int, batch: int):
@@ -325,18 +630,11 @@ def prepare(cfg, params, T: int, batch: int):
         "plan": torch.tensor(_pack_plan(layout), device=device),
     }
     state = {"buf": torch.zeros(max(layout.state_size, 1), device=device), "n": 0}
+    if layout.S_ext:
+        sub_prepare, sub_step = _prepass_fns(cfg.condition_config, T, batch, device)
+        sub_ep, state["condition"] = sub_prepare(cfg.condition_config, params["condition"], T, batch)
+        eparams["condition"] = (sub_step, sub_ep)
     return eparams, state
-
-
-def rings(layout: Layout, buf: torch.Tensor) -> List[Optional[torch.Tensor]]:
-    """(M, C, T, B) views of each layer's ring in the state buffer (None
-    where a layer has no ring)."""
-    out = []
-    for a in layout.arrays:
-        for lp in a.layers:
-            n = lp.M * a.C * layout.T * layout.B
-            out.append(buf[lp.ring : lp.ring + n].view(lp.M, a.C, layout.T, layout.B) if lp.M else None)
-    return out
 
 
 # =============================================================================
@@ -344,49 +642,133 @@ def rings(layout: Layout, buf: torch.Tensor) -> List[Optional[torch.Tensor]]:
 # =============================================================================
 
 
-def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
-    """One block through every array, reading the weights back out of the
-    packed buffer and writing the rings in place. x (Cin, T, B) -> (Cout, T, B)."""
-    T, B, S = layout.T, layout.B, layout.Cin
+def _act_plain(code: int, prm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel's activation ``code`` with its parameters, on (C, T, B)."""
+    if code == ACT_CODES["Tanh"]:
+        return torch.tanh(v)
+    if code == ACT_CODES["ReLU"]:
+        return torch.clamp_min(v, 0.0)
+    if code == ACT_CODES["Sigmoid"]:
+        return torch.sigmoid(v)
+    if code == ACT_CODES["Hardtanh"]:
+        return act.hard_tanh(v)
+    if code == ACT_CODES["LeakyReLU"]:
+        return torch.where(v > 0, v, prm[0] * v)
+    if code == ACT_CODES["SiLU"]:
+        return v * torch.sigmoid(v)
+    if code == ACT_CODES["Softsign"]:
+        return act.softsign(v)
+    if code == ACT_CODES["Hardswish"]:
+        return act.hardswish(v)
+    if code == ACT_CODES["Fasttanh"]:
+        return act.fast_tanh(v)
+    if code == ACT_CODES["LeakyHardtanh"]:
+        return act.leaky_hardtanh(v, prm[0], prm[1], prm[2], prm[3])
+    if code == ACT_PRELU_CHANNELS:
+        return torch.where(v > 0, v, prm[: v.shape[0], None, None] * v)
+    return v  # Identity
+
+
+def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torch.Tensor, n: int,
+               cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One block through every net, reading the weights back out of the
+    packed buffer and writing the rings in place. x (Cin, T, B) and, with a
+    pre-pass, cond (S_ext, T, B) -> (Cout, T, B). Stage order as the JAX
+    kernel's (stack.py:1551-1641)."""
+    from ...models.wavenet import FILM_SITES
+
+    T, B = layout.T, layout.B
+    TB = T * B
+    site = {s: i for i, s in enumerate(FILM_SITES)}
 
     def mat(off: int, rows: int, cols: int) -> torch.Tensor:
         return weights[off : off + rows * cols].view(rows, cols)
 
-    ring_views = iter(rings(layout, buf))
-    layer_out = x
-    head = None
-    for a in layout.arrays:
-        C, CP = a.C, a.CP
-        h = torch.matmul(mat(a.rech, C, a.I), layer_out.reshape(a.I, T * B)).view(C, T, B)
-        hacc = torch.zeros(C, T, B, device=x.device) if head is None else head
-        for lp in a.layers:
-            ring = next(ring_views)
-            K, d = lp.K, lp.d
-            conv_w = mat(lp.seg, K * C, CP)[:, :C].t()  # (C out, K*C)
-            off = lp.seg + K * C * CP
-            bias = weights[off : off + C]
-            mix = mat(off + CP, S, CP)[:, :C].t()  # (C, S)
-            # Logical history [-mmax*T, T): mmax past blocks, then this one.
-            mmax = -(-(K - 1) * d // T)
-            past = [ring[(n - m) % lp.M] for m in range(mmax, 0, -1)] if lp.M else []
-            hist = torch.cat(past + [h], dim=1)
-            wins = [hist[:, mmax * T - (K - 1 - k) * d :][:, :T] for k in range(K)]
-            z = torch.matmul(conv_w, torch.cat(wins, dim=0).reshape(K * C, T * B)).view(C, T, B)
-            z = (z + bias[:, None, None]) + torch.matmul(mix, x.reshape(S, T * B)).view(C, T, B)
-            av = act.apply(lp.activation, z, channel_axis=0)
-            if lp.M:
-                ring[n % lp.M].copy_(h)
-            hacc = hacc + av
-            if lp.l1:
-                l1_off = off + CP + S * CP
-                l1_w = mat(l1_off, CP, CP)[:C, :C].t()  # (out c, in o)
-                l1_b = weights[l1_off + CP * CP : l1_off + CP * CP + C]
-                h = h + (torch.matmul(l1_w, av.reshape(C, T * B)).view(C, T, B) + l1_b[:, None, None])
-        layer_out = h
-        head = torch.matmul(mat(a.hr, a.HS, C), hacc.reshape(C, T * B)).view(a.HS, T, B)
-        if a.hr_b >= 0:
-            head = head + weights[a.hr_b : a.hr_b + a.HS][:, None, None]
-    return weights[layout.head_scale] * head
+    def vec(off: int, rows: int) -> torch.Tensor:
+        return weights[off : off + rows][:, None, None]
+
+    def prod(w_io: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """(in, out) weights times v (in, T, B) -> (out, T, B)."""
+        return torch.matmul(w_io.t(), v.reshape(w_io.shape[0], TB)).view(w_io.shape[1], T, B)
+
+    def taps(K: int, d: int, M: int, ring: Optional[torch.Tensor], v: torch.Tensor) -> torch.Tensor:
+        """The K tap windows of v's stream stacked on channels; the history
+        [-mmax T, 0) comes from the ring's mmax past blocks."""
+        mmax = -(-(K - 1) * d // T)
+        past = [ring[(n - m) % M] for m in range(mmax, 0, -1)] if M else []
+        hist = torch.cat(past + [v], dim=1)
+        return torch.cat([hist[:, mmax * T - (K - 1 - k) * d :][:, :T] for k in range(K)], dim=0)
+
+    def ring_view(off: int, M: int, rows: int) -> torch.Tensor:
+        return buf[off : off + M * rows * TB].view(M, rows, T, B)
+
+    def film(off: int, shift: bool, W: int, S: int, v: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """v * (Wsc . c + bsc) [+ (Wsh . c + bsh)], on v's rows (NAM/film.h)."""
+        r = v.shape[0]
+        sc = (prod(mat(off, S, W), c) + vec(off + S * W, W))[:r]
+        if not shift:
+            return v * sc
+        sh = (prod(mat(off + S * W + W, S, W), c) + vec(off + 2 * S * W + W, W))[:r]
+        return v * sc + sh
+
+    def tail(tc: TailLayout, v: torch.Tensor) -> torch.Tensor:
+        if tc.act >= 0:
+            v = _act_plain(tc.act, weights[tc.prm : tc.prm + MAX_CHANNELS], v)
+        v = v[: tc.cin]
+        ring = ring_view(tc.ring, tc.M, tc.cin) if tc.M else None
+        y = prod(mat(tc.w, tc.K * tc.cin, tc.cout), taps(tc.K, tc.d, tc.M, ring, v))
+        if tc.b >= 0:
+            y = y + vec(tc.b, tc.cout)
+        if tc.M:
+            ring[n % tc.M].copy_(v)
+        return y
+
+    c = x if cond is None else cond
+    for net in layout.nets:
+        S = net.S
+        layer_out, hacc = x, None
+        for a in net.arrays:
+            C, CP, H = a.C, a.CP, a.CP // 2
+            h = torch.matmul(mat(a.rech, C, a.I), layer_out[: a.I].reshape(a.I, TB)).view(C, T, B)
+            for lp in a.layers:
+                o, s = lp.offs, lp.seg
+
+                def f(name: str, v: torch.Tensor, W: int = CP) -> torch.Tensor:
+                    return film(s + o[name], lp.shifts[site[name]], W, S, v, c) if name in o else v
+
+                hin = f("conv_pre_film", h)  # the conv and its history see the filmed input
+                ring = ring_view(lp.ring, lp.M, C) if lp.M else None
+                z = prod(mat(s, lp.K * C, CP), taps(lp.K, lp.d, lp.M, ring, hin)) + vec(s + o["b"], CP)
+                z = f("conv_post_film", z)
+                mi = f("input_mixin_pre_film", c, MAX_IN_CHANNELS)
+                z = z + f("input_mixin_post_film", prod(mat(s + o["mix"], S, CP), mi))
+                z = f("activation_pre_film", z)
+                prm1, prm2 = weights[s + o["prm1"] : s + o["prm1"] + CP], weights[s + o["prm2"] : s + o["prm2"] + CP]
+                if lp.gating == GATING_CODES["none"]:
+                    av = _act_plain(lp.act1, prm1, z)
+                else:
+                    top, g = _act_plain(lp.act1, prm1, z[:H]), _act_plain(lp.act2, prm2, z[H:])
+                    av = top * g if lp.gating == GATING_CODES["gated"] else g * top + (1.0 - g) * z[:H]
+                    av = torch.cat([av, torch.zeros_like(av)])
+                av = f("activation_post_film", av)
+                if lp.M:
+                    ring[n % lp.M].copy_(hin)
+                if "l1" in o:
+                    l1 = prod(mat(s + o["l1"], CP, CP), av) + vec(s + o["l1b"], CP)
+                    if lp.gating == GATING_CODES["blended"]:  # reference quirk (model.cpp:262-270)
+                        l1 = f("layer1x1_post_film", l1)
+                    h = h + l1[:C]
+                hd = av
+                if "h1" in o:
+                    hd = f("head1x1_post_film", prod(mat(s + o["h1"], CP, CP), av) + vec(s + o["h1b"], CP))
+                hacc = hd[: a.HI] if hacc is None else hacc + hd[: a.HI]
+            layer_out = h
+            hacc = tail(a.hr, hacc)
+        work = weights[net.head_scale] * hacc
+        for tc in net.pheads:
+            work = tail(tc, work)
+        c = work  # a condition net's output is the next net's condition
+    return work
 
 
 # =============================================================================
@@ -394,7 +776,7 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
 # =============================================================================
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.nam_stack_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.nam_stack_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.nam_stack_step.restype = ctypes.c_int
 
 
@@ -403,11 +785,13 @@ LIB = _build.Library("stack.cu", _bind)
 
 
 def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch.Tensor,
-           x: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch the kernel on the current stream: x (Cin, T, B) -> y (Cout, T, B)."""
+           x: torch.Tensor, n: int, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel on the current stream: x (Cin, T, B) and, with a
+    pre-pass, cond (S_ext, T, B) -> y (Cout, T, B)."""
     global launches
     T, B = layout.T, layout.B
-    for name, t in (("x", x), ("weights", weights), ("state", buf)):
+    tensors = [("x", x), ("weights", weights), ("state", buf)] + ([("cond", cond)] if cond is not None else [])
+    for name, t in tensors:
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
         if t.device != x.device:
@@ -416,12 +800,14 @@ def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch
         raise ValueError("plan must be an int64 tensor on x's device")
     if tuple(x.shape) != (layout.Cin, T, B):
         raise ValueError(f"x shape {tuple(x.shape)} != {(layout.Cin, T, B)}")
+    if (cond is None) != (layout.S_ext == 0) or (cond is not None and tuple(cond.shape) != (layout.S_ext, T, B)):
+        raise ValueError(f"cond must be {(layout.S_ext, T, B) if layout.S_ext else None}")
     lib = LIB.load()
     y = torch.empty((layout.Cout, T, B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.nam_stack_step(
-        x.data_ptr(), y.data_ptr(), buf.data_ptr(), weights.data_ptr(), plan.data_ptr(),
-        T, B, n, layout.BS, layout.c_max, layout.smem_bytes, stream,
+        x.data_ptr(), cond.data_ptr() if cond is not None else None, y.data_ptr(), buf.data_ptr(),
+        weights.data_ptr(), plan.data_ptr(), T, B, n, layout.BS, layout.c_max, layout.smem_bytes, stream,
     )
     LIB.check(err, "stack kernel")
     launches += 1
@@ -430,18 +816,25 @@ def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch
 
 def step(cfg, T: int, eparams, state, x: torch.Tensor):
     """Block step, engine (C, T, B) convention: x (Cin, T, B) -> (y (Cout, T, B), state').
-    A CUDA tensor goes through the kernel, a CPU tensor through ``step_plain``."""
+    A CUDA tensor goes through the kernel, a CPU tensor through ``step_plain``;
+    a pre-pass condition model steps first, through its own backend."""
     layout: Layout = eparams["layout"]
     if act.using_fast_tanh or act.lut_active():
         raise ValueError("fast-tanh / LUT mode was switched on after the fused engine was built")
-    n = state["n"] % layout.wrap
-    if x.is_cuda:
-        y = launch(layout, eparams["weights"], eparams["plan"], state["buf"], x.contiguous(), n)
-    elif x.device.type == "cpu":
-        y = step_plain(layout, eparams["weights"], state["buf"], x, n)
-    else:
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused stack step runs on CUDA or CPU tensors, got {x.device}")
-    return y, {"buf": state["buf"], "n": (n + 1) % layout.wrap}
+    n = state["n"] % layout.wrap
+    new_state = {"buf": state["buf"], "n": (n + 1) % layout.wrap}
+    cond = None
+    if "condition" in eparams:
+        sub_step, sub_ep = eparams["condition"]
+        cond, new_state["condition"] = sub_step(cfg.condition_config, T, sub_ep, state["condition"], x)
+    if x.is_cuda:
+        y = launch(layout, eparams["weights"], eparams["plan"], state["buf"], x.contiguous(), n,
+                   None if cond is None else cond.contiguous())
+    else:
+        y = step_plain(layout, eparams["weights"], state["buf"], x, n, cond)
+    return y, new_state
 
 
 # =============================================================================
@@ -449,29 +842,58 @@ def step(cfg, T: int, eparams, state, x: torch.Tensor):
 # =============================================================================
 
 
+def _history_cols(K: int, d: int, T: int) -> int:
+    """Frames of history a conv must move per block at the least: the
+    distinct past frames its K taps read, and min(rf, T) frames of new
+    history."""
+    rf = (K - 1) * d
+    past = len({t - (K - 1 - k) * d for k in range(K) for t in range(T)} & set(range(-rf, 0)))
+    return past + min(rf, T)
+
+
 def work(cfg, T: int, batch: int) -> Dict[str, float]:
-    """What one block needs at the least: MACs, and the bytes that must move
-    (input and output once; per layer, the 2*min(d, T) past frames its taps
-    read and the min(rf, T) frames of new history, for C channels; weights
-    once)."""
+    """What one block needs at the least: MACs (every product the nets do,
+    FiLM's scale and shift included) and the bytes that must move (input,
+    pre-pass condition and output once; per conv with history, the past
+    frames its taps read and the new history it keeps; weights once)."""
+    from ...models.wavenet import FILM_SITES, head_conv_specs, layer_film_spec
+
+    nets, S_ext = _net_configs(cfg, T)
     macs = 0
     state_cols = 0
-    for ac in cfg.layer_arrays:
-        C, S = ac.channels, ac.condition_size
-        macs += ac.input_size * C + C * ac.head_size
-        for K, d in zip(ac.kernel_sizes, ac.dilations):
-            macs += K * C * C + S * C + (C * C if ac.layer1x1_active else 0)
-            rf = (K - 1) * d
-            # distinct past frames the K taps read, and frames of new history
-            past = len({t - (K - 1 - k) * d for k in range(K) for t in range(T)} & set(range(-rf, 0)))
-            state_cols += C * (past + min(rf, T))
     n_weights = 0
-    for ac in cfg.layer_arrays:
-        C = ac.channels
-        n_weights += ac.input_size * C + C * ac.head_size + ac.head_size
-        for K in ac.kernel_sizes:
-            n_weights += K * C * C + C + ac.condition_size * C + (C * C + C if ac.layer1x1_active else 0)
-    per_stream = 4 * (state_cols + (cfg.in_channels + cfg.out_channels_) * T)
+    for ncfg in nets:
+        for ac in ncfg.layer_arrays:
+            C, S, bn = ac.channels, ac.condition_size, ac.bottleneck
+            macs += ac.input_size * C
+            n_weights += ac.input_size * C
+            for li in range(ac.num_layers):
+                K, d, co = ac.kernel_sizes[li], ac.dilations[li], ac.conv_out_channels(li)
+                m = K * C * co + S * co
+                if ac.layer1x1_active:
+                    m += bn * C
+                if ac.head1x1_active:
+                    m += bn * ac.head1x1_out_channels
+                for site in FILM_SITES:
+                    spec = layer_film_spec(ac, li, site)
+                    if spec is not None:
+                        m += S * spec.cond_spec.out_channels
+                        n_weights += spec.cond_spec.out_channels
+                macs += m
+                n_weights += m + co + (C if ac.layer1x1_active else 0)
+                n_weights += ac.head1x1_out_channels if ac.head1x1_active else 0
+                state_cols += C * _history_cols(K, d, T)
+            K, HI, HS = ac.head_kernel_size, ac.head_output_size, ac.head_size
+            macs += K * HI * HS
+            n_weights += K * HI * HS + (HS if ac.head_bias else 0)
+            state_cols += HI * _history_cols(K, ac.head_dilation, T)
+        n_weights += 1  # head_scale
+        if ncfg.head is not None:
+            for s in head_conv_specs(ncfg.head):
+                macs += s.kernel_size * s.in_channels * s.out_channels
+                n_weights += s.kernel_size * s.in_channels * s.out_channels + s.out_channels
+                state_cols += s.in_channels * _history_cols(s.kernel_size, s.dilation, T)
+    per_stream = 4 * (state_cols + (cfg.in_channels + S_ext + cfg.out_channels_) * T)
     return {
         "macs": float(macs * T * batch),
         "flops": float(2 * macs * T * batch),

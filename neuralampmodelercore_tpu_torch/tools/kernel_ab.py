@@ -1,0 +1,125 @@
+"""Time one kernel of several checkouts on one card, in turns.
+
+    python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] [--config flagship]
+
+Each TREE is the root of a checkout (one holding neuralampmodelercore_tpu_torch/).
+``--config`` names a config of this checkout's ``tools/agreement.py``, passed to
+every tree as a .nam document; its architecture picks the kernel (WaveNet: the
+stack kernel, LSTM: K2, ConvNet: K3). Every tree builds that kernel (all builds
+started together, each into the tree's own build/kernels/), then each
+measurement runs in its own process with that tree first on sys.path, in the
+order A, B, ..., B, A, so that a drift of the card shows as a difference
+between the two turns of a tree. A measurement is the kernel's time per block
+at the main paths' shape, B=2048 and T=64, from CUDA events over 20 calls
+after 3 warm-up calls, state carried; a tree whose kernel refuses the config
+is skipped. A variant of a kernel is a
+copy of the tree with its source edited (for example ``#pragma unroll 2``
+before the unit loop of ``csrc/lstm.cu``). Prints the card's name and power
+limit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+KERNELS = {"WaveNet": "stack", "LSTM": "lstm", "ConvNet": "convnet"}
+B, T = 2048, 64
+
+WORKER = r"""
+import importlib, json, sys, time
+tree, kernel, doc_path, B, T, mode = sys.argv[1:7]
+B, T = int(B), int(T)
+sys.path.insert(0, tree)
+import torch
+import neuralampmodelercore_tpu_torch as nam
+mod = importlib.import_module("neuralampmodelercore_tpu_torch.ops.cuda." + kernel)
+if mode == "build":
+    t0 = time.perf_counter()
+    mod.LIB.compile()
+    print(json.dumps({"build_s": time.perf_counter() - t0}))
+    sys.exit(0)
+model = nam.load_model(json.load(open(doc_path)))
+reason = mod.supports(model.config, T, B)
+if reason is not None:
+    print(json.dumps({"refused": reason}))
+    sys.exit(0)
+ep, st = mod.prepare(model.config, model.params, T, B)
+gen = torch.Generator("cuda").manual_seed(0)
+x = torch.randn((model.num_input_channels, T, B), device="cuda", generator=gen) * 0.3
+box = {"s": st}
+def run():
+    _, box["s"] = mod.step(model.config, T, ep, box["s"], x)
+for _ in range(3):
+    run()
+torch.cuda.synchronize()
+a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+a.record()
+for _ in range(20):
+    run()
+b.record()
+torch.cuda.synchronize()
+print(json.dumps({"ms": a.elapsed_time(b) / 20}))
+"""
+
+
+def _worker(tree: str, kernel: str, doc: str, mode: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", WORKER, tree, kernel, doc, str(B), str(T), mode],
+                         capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{tree} ({mode}) failed:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--config", default="flagship", help="a config name of tools/agreement.py")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 2
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .agreement import configs
+    from .generate import make_nam
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    trees = [os.path.abspath(t) for t in args.trees]
+    arch, config, seed = configs()[args.config]
+    kernel = KERNELS[arch]
+    doc = Path(__file__).resolve().parents[2] / "build" / f"kernel_ab_{args.config}.nam"
+    doc.parent.mkdir(parents=True, exist_ok=True)
+    doc.write_text(json.dumps(make_nam(arch, config, seed=seed)))
+    try:
+        with ThreadPoolExecutor(len(trees)) as ex:
+            builds = list(ex.map(lambda t: _worker(t, kernel, str(doc), "build"), trees))
+        for tree, b in zip(trees, builds):
+            print(f"build {kernel} {tree}: {b['build_s']:.1f} s", flush=True)
+        times = {t: [] for t in trees}
+        for tree in trees + trees[::-1]:
+            res = _worker(tree, kernel, str(doc), "time")
+            if "refused" in res:
+                print(f"{tree}: {kernel} refuses {args.config}: {res['refused']}", flush=True)
+                continue
+            times[tree].append(res["ms"])
+        for tree, ms in times.items():
+            if ms:
+                print(f"{tree}: {kernel} {args.config} B={B} T={T}: "
+                      + ", ".join(f"{1e3 * m:.1f}" for m in ms) + f" us/block  [{smi}]", flush=True)
+    finally:
+        doc.unlink()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

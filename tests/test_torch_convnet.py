@@ -196,9 +196,12 @@ def test_wavenet_with_convnet_condition_dsp(tier):
         np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=ATOL)
         return
     _engine_run(jm, tm, "torch", T=16, batch=3, n_blocks=4, seed=8)
-    assert tnam.StreamEngine(tm, batch=3, block_size=16).kernel == "torch"
-    with pytest.raises(ValueError, match="K1e"):
-        tnam.StreamEngine(tm, batch=3, block_size=16, kernel="fused")
+    assert tnam.StreamEngine(tm, batch=3, block_size=16).kernel == "torch"  # auto on the CPU
+    # The stack kernel takes it with the condition model as a pre-pass (K1e).
+    from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+
+    assert tstack.cond_mode(tm.config, 16) == "prepass"
+    _engine_run(jm, tm, "fused", T=16, batch=3, n_blocks=4, seed=8)
 
 
 def test_supports_gate_and_backend():

@@ -1,6 +1,8 @@
 """Tests that need the CUDA card: each kernel (stack, lstm, convnet) against
-its plain version on the same CUDA inputs, and each main path's choice of its
-kernel with its exact launch count.
+its plain version on the same CUDA inputs (for the stack kernel, every
+feature: gating, bottleneck, head1x1, FiLM sites, k>1 head rechannel,
+post-stack head, condition chains and the LSTM pre-pass), each main path's
+choice of its kernel with its exact launch count, and the agreement sweep.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch. Every test is marked ``cuda`` and skips, inside the
@@ -19,6 +21,7 @@ from neuralampmodelercore_tpu_torch.ops import activations as tact
 from neuralampmodelercore_tpu_torch.ops.cuda import convnet as tconv
 from neuralampmodelercore_tpu_torch.ops.cuda import lstm as tlstm
 from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+from neuralampmodelercore_tpu_torch.tools import agreement
 from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
 ATOL = 2e-5
@@ -171,3 +174,84 @@ def test_lstm_and_convnet_main_paths_run_their_kernels(arch, config, sample_rate
         yr, rs = ref.process(x, rs)
         torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
     assert mod.launches == before + prewarm_launches + 4
+
+
+def _plain_condition(ep, cstate, x):
+    """The pre-pass condition through the condition model's plain version:
+    (cond, state') with the state a copy (an LSTM's h and c)."""
+    sub_step, sub_ep = ep["condition"]
+    assert sub_step is tlstm.step, "the LSTM pre-pass runs K2 on the card"
+    h, c = cstate["h"].clone(), cstate["c"].clone()
+    return tlstm.step_plain(sub_ep["layout"], sub_ep["weights"], h, c, x), {"h": h, "c": c}
+
+
+# (config name in tools/agreement.py, T, B): every FiLM site alone at T=16,
+# where conv_pre_film's dilation 32 wraps its ring, and each other feature.
+FEATURE_CASES = [(f"film_{s}", 16, 300) for s in (
+    "conv_pre_film", "conv_post_film", "input_mixin_pre_film", "input_mixin_post_film",
+    "activation_pre_film", "activation_post_film")] + [
+    ("gated_bottleneck", 16, 300), ("blended_head1x1", 16, 300), ("layer1x1_post_film_blended", 16, 300),
+    ("layer1x1_post_film_none", 16, 300), ("head1x1_post_film", 16, 300), ("head_k16", 64, 300),
+    ("head_k16", 16, 300), ("post_head", 16, 300), ("condition_chain_depth2", 16, 300),
+    ("condition_lstm_prepass", 16, 300), ("prelu_per_channel", 16, 300), ("flagship_max", 64, 256),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,T,B", FEATURE_CASES)
+def test_stack_features_kernel_matches_plain_version(name, T, B):
+    """State carried over 6 blocks; the LSTM pre-pass launches K2 and the
+    stack kernel once per block each."""
+    _cuda_or_skip()
+    arch, config, seed = agreement.configs()[name]
+    tm = tnam.load_model(make_nam(arch, config, seed=seed))
+    assert tstack.supports(tm.config, T, B) is None
+    ep, sk = tstack.prepare(tm.config, tm.params, T, B)
+    buf = sk["buf"].clone()
+    cstate = {k: v.clone() for k, v in sk["condition"].items()} if "condition" in sk else None
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    before = (tstack.launches, tlstm.launches)
+    for _ in range(6):
+        x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+        n = sk["n"]
+        cond = None
+        if cstate is not None:
+            cond, cstate = _plain_condition(ep, cstate, x)
+        yk, sk = tstack.step(tm.config, T, ep, sk, x)
+        yp = tstack.step_plain(ep["layout"], ep["weights"], buf, x, n, cond)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+        torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+    prepass = name == "condition_lstm_prepass"
+    assert (tstack.launches, tlstm.launches) == (before[0] + 6, before[1] + (6 if prepass else 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,prewarm_blocks", [("flagship_cond", 80), ("flagship_max", 65)])
+def test_feature_main_paths_run_the_kernel(name, prewarm_blocks):
+    """auto picks the stack kernel for the flagship with a WaveNet condition
+    DSP (two nets in one launch) and for the everything-on model; one launch
+    per block, and the result matches the torch engine tier."""
+    _cuda_or_skip()
+    arch, config, seed = agreement.configs()[name]
+    tm = tnam.load_model(make_nam(arch, config, seed=seed))
+    eng = tnam.StreamEngine(tm, batch=256, block_size=64)
+    ref = tnam.StreamEngine(tm, batch=256, block_size=64, kernel="torch")
+    assert eng.kernel == "fused" and eng.prewarm_plan() == (prewarm_blocks, 0)
+    before = tstack.launches
+    s, rs = eng.reset(), ref.reset()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for _ in range(4):
+        x = torch.randn((256, 64), generator=gen, device="cuda") * 0.3
+        y, s = eng.process(x, s)
+        yr, rs = ref.process(x, rs)
+        torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
+    assert tstack.launches == before + prewarm_blocks + 4
+
+
+@pytest.mark.cuda
+def test_agreement_sweep_on_the_card(tmp_path):
+    _cuda_or_skip()
+    res = agreement.sweep(["flagship_max", "condition_lstm_prepass", "lstm_2x8", "convnet"], batches=(256,),
+                          blocks=4, out=str(tmp_path))
+    assert all(r["ok"] for r in res.values()), res
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"{k}.json" for k in res)

@@ -216,7 +216,8 @@ def test_passthrough_tiers_match_jax():
 def test_wavenet_with_lstm_condition_dsp(tier):
     """A WaveNet whose condition DSP is an LSTM loads, stays non-recurrent at
     the architecture level as in the JAX package (ceil prewarm blocks), and
-    matches it; the stack kernel refuses the condition DSP (K1e)."""
+    matches it, on the torch tier and on the stack kernel with the LSTM as a
+    pre-pass (K1e)."""
     sub = make_nam("LSTM", {"input_size": 1, "hidden_size": 4, "num_layers": 1, "out_channels": 2},
                    seed=1, sample_rate=496)
     layer = dict(input_size=1, condition_size=1, head_size=1, channels=4, kernel_size=3,
@@ -232,9 +233,12 @@ def test_wavenet_with_lstm_condition_dsp(tier):
         return
     te = _engine_run(jm, tm, "torch", T=16, batch=3, n_blocks=4, seed=8)
     assert te.prewarm_plan() == (-(-tm.get_prewarm_samples() // 16), 0)
-    assert tnam.StreamEngine(tm, batch=3, block_size=16).kernel == "torch"
-    with pytest.raises(ValueError, match="K1e"):
-        tnam.StreamEngine(tm, batch=3, block_size=16, kernel="fused")
+    assert tnam.StreamEngine(tm, batch=3, block_size=16).kernel == "torch"  # auto on the CPU
+    # The stack kernel takes it with the condition model as a pre-pass (K1e).
+    from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+
+    assert tstack.cond_mode(tm.config, 16) == "prepass"
+    _engine_run(jm, tm, "fused", T=16, batch=3, n_blocks=4, seed=8)
 
 
 def test_supports_gate_and_backend():

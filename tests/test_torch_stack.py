@@ -169,27 +169,41 @@ def _layer(**kw):
     return base
 
 
+# What K1b-K1e brought into the kernel: each of these was refused before
+# them and now runs fused and matches the JAX package.
+ADMITTED = {
+    "gated": {"layers": [_layer(gated=True)], "head": None},
+    "blended": {"layers": [_layer(gating_mode="blended")], "head": None},
+    "bottleneck": {"layers": [_layer(channels=4, bottleneck=2)], "head": None},
+    "head1x1": {"layers": [_layer(head1x1={"active": True, "out_channels": 2, "groups": 1})], "head": None},
+    "film": {"layers": [_layer(conv_post_film={"active": True})], "head": None},
+    "head_rechannel_k3": {"layers": [_layer(head={"out_channels": 1, "kernel_size": 3, "bias": True})]},
+    "post_head": {"layers": [_layer(head_size=2)],
+                  "head": {"channels": 2, "out_channels": 1, "kernel_sizes": [1], "activation": "Tanh"}},
+    "condition_dsp": with_condition_dsp({"layers": [_layer()], "head": None},
+                                        make_nam("WaveNet", wavenet_preset("simple"), seed=1)),
+    "prelu_per_channel": {"layers": [_layer(activation={"type": "PReLU", "negative_slopes": [0.1, 0.2]})],
+                          "head": None},
+}
+
 REFUSED = {
-    "gated": ({"layers": [_layer(gated=True)], "head": None}, "K1b"),
-    "blended": ({"layers": [_layer(gating_mode="blended")], "head": None}, "K1b"),
-    "bottleneck": ({"layers": [_layer(channels=4, bottleneck=2)], "head": None}, "K1b"),
-    "head1x1": ({"layers": [_layer(head1x1={"active": True, "out_channels": 2, "groups": 1})], "head": None}, "K1b"),
-    "film": ({"layers": [_layer(conv_post_film={"active": True})], "head": None}, "K1c"),
-    "head_rechannel_k3": ({"layers": [_layer(head={"out_channels": 1, "kernel_size": 3, "bias": True})]}, "K1d"),
-    "post_head": ({"layers": [_layer(head_size=2)],
-                   "head": {"channels": 2, "out_channels": 1, "kernel_sizes": [1], "activation": "Tanh"}}, "K1d"),
-    "condition_dsp": (with_condition_dsp({"layers": [_layer()], "head": None},
-                                         make_nam("WaveNet", wavenet_preset("simple"), seed=1)), "K1e"),
-    "prelu_per_channel": ({"layers": [_layer(activation={"type": "PReLU", "negative_slopes": [0.1, 0.2]})],
-                           "head": None}, "per-channel PReLU"),
     "wide": ({"layers": [_layer(channels=40)], "head": None}, "channels"),
     "many_inputs": ({"in_channels": 5, "layers": [_layer(input_size=5, condition_size=5)], "head": None},
                     "in_channels"),
 }
 
 
+@pytest.mark.parametrize("name", sorted(ADMITTED))
+def test_admitted_features_run_fused(name):
+    tm = tnam.load_model(make_nam("WaveNet", ADMITTED[name], seed=0), device="cpu")
+    assert tstack.supports(tm.config, 16, B) is None
+    _run(ADMITTED[name], T=16, n_blocks=6, tiers=("xla",))
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_supports_refuses_what_is_not_k1a(name):
+    """Beyond the kernel's limits: more than 32 channels, more than 4 input
+    channels."""
     config, why = REFUSED[name]
     tm = tnam.load_model(make_nam("WaveNet", config, seed=0), device="cpu")
     reason = tstack.supports(tm.config, 16, B)
@@ -238,6 +252,39 @@ def test_work_counts_for_the_bound():
     assert w["macs"] == 13320 * 64 * 4096
     per_stream = (w["bytes"] - 4 * 13800) / 4096
     assert 97_000 < per_stream < 99_000
+
+
+def _array_macs(I, C, K, n_layers, S=1, conv_out=None, bn=None, l1=True, h1=0, films=(), head=(1, None, 1)):
+    """MACs per sample of one layer array, counted by hand: rechannel I*C;
+    per layer the conv K*C*conv_out, the mixin S*conv_out, layer1x1 bn*C,
+    head1x1 bn*h1, each FiLM site S*rows; the head rechannel K*in*out."""
+    conv_out = conv_out or C
+    bn = bn or C
+    per_layer = K * C * conv_out + S * conv_out + (bn * C if l1 else 0) + bn * h1 + sum(S * r for r in films)
+    hk, hin, hout = head
+    return I * C + n_layers * per_layer + hk * (hin or bn) * hout
+
+
+def test_work_counts_the_feature_main_paths():
+    """flagship_cond: the flagship (13,320) plus its `small` condition net
+    (7,312). flagship_max: gated 16/8 with head1x1 and FiLM at conv_pre
+    (2*16), input_mixin_post (2*16), activation_post (8), head1x1_post (2*8);
+    blended 8 with FiLM at conv_post (2*16), input_mixin_pre (2*1),
+    activation_pre (16), layer1x1_post (2*8) and the k=16 head 8 -> 4; the
+    post head 4 -> 5 -> 5 -> 1 with k = 3, 1, 4."""
+    from neuralampmodelercore_tpu_torch.tools import agreement
+
+    flagship = _array_macs(1, 16, 3, 10, head=(1, 16, 8)) + _array_macs(16, 8, 3, 10, head=(1, 8, 1))
+    small = _array_macs(1, 16, 3, 6, head=(1, 16, 8)) + _array_macs(16, 8, 3, 3, head=(1, 8, 1))
+    assert (flagship, small) == (13320, 7312)
+    a0 = _array_macs(1, 16, 3, 10, conv_out=16, bn=8, h1=8, films=(32, 32, 8, 16), head=(1, 8, 8))
+    a1 = _array_macs(16, 8, 3, 10, conv_out=16, films=(32, 2, 16, 16), head=(16, 8, 4))
+    post = 3 * 4 * 5 + 1 * 5 * 5 + 4 * 5 * 1
+    assert (a0, a1, post) == (10720, 5940, 105)
+    for name, macs in (("flagship_cond", flagship + small), ("flagship_max", a0 + a1 + post)):
+        arch, config, seed = agreement.configs()[name]
+        tm = tnam.load_model(make_nam(arch, config, seed=seed), device="cpu")
+        assert tstack.work(tm.config, 64, 2048)["macs"] == macs * 64 * 2048, name
 
 
 def test_wrapper_refuses_other_devices_and_bad_shapes():

@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py [--out report.json]
 
-It drives the port's five main paths, each through load_model(.nam) ->
+It drives the port's seven main paths, each through load_model(.nam) ->
 StreamEngine(kernel="auto") -> its hand-written CUDA kernel: the WaveNet
-flagship, the LSTM and the ConvNet, and two WaveNets on the stack kernel's
+flagship, the LSTM and the ConvNet; two WaveNets on the stack kernel's
 features: flagship_cond (the flagship with a WaveNet condition DSP, two nets
 in one launch) and flagship_max (gating, blending, bottleneck, head1x1, FiLM
 at all 8 sites, the k=16 head conv and a post-stack head at the flagship's
-widths). Phases (any failure raises and exits non-zero):
+widths); flagship_fast_tanh (the flagship with the global fast-tanh mode on,
+K1f) and flagship_wavefront (the flagship on the wavefront-scheduled kernel,
+csrc/stack_wf.cu, K1g); and the benchmodel entry point with --engine
+--fast-tanh. Phases (any failure raises and exits non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
-  2. build every kernel from the checkout's sources (one nvcc per source, all
-     started together, sm_90a) and print each build time and ptxas's
-     register / spill report per kernel instance;
+  2. build every kernel from the checkout's sources (one nvcc per source,
+     stack.cu, stack_wf.cu, lstm.cu and convnet.cu all started together,
+     sm_90a) and print each build time and ptxas's register / spill report
+     per kernel instance;
   3. each kernel against its plain PyTorch version on the card, same inputs
      from a seed, state carried, outputs and state to <= 2e-5 absolute:
      stack (the flagship at T=64 and T=16, offset-splice dilations, every
@@ -27,22 +31,36 @@ widths). Phases (any failure raises and exits non-zero):
      B=1000, H=5 with two outputs, fast-tanh mode), convnet (the amp ConvNet
      at T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
      groups=2, two in/out channels, a non-Tanh activation, dilations that
-     are not multiples of T);
+     are not multiples of T); the modes (K1f): the flagship at T=64 under
+     fast-tanh, at T=16 under a Tanh LUT (-5, 5, 512 points), gated_bottleneck
+     under a Sigmoid LUT, depthwise (SiLU) under a SiLU LUT, the amp ConvNet
+     under fast-tanh and under a Tanh LUT; the wavefront kernel (K1g) against
+     step_plain_wf on the flagship at T=64, 16 and 20 (sub-tiles of 5 frames)
+     and on offset-splice dilations at T=32, and a stream that switches
+     WAVEFRONT on and off between blocks against the unpacked plain version;
   4. each main path end to end at B=2048, T=64: load_model on the card,
      StreamEngine with kernel="auto" (must pick "fused"), reset with prewarm,
      32 blocks. Every launch counter is set to 0 just before the path and
      read just after; the path's kernel must have run exactly prewarm + 32
      times and no other kernel at all (the LSTM's prewarm is 344 full blocks
-     and one 34-sample remainder step), and the output must be finite and
-     within 2e-5 of the torch engine tier on the card;
+     and one 34-sample remainder step; flagship_wavefront's 96 launches must
+     all be the wavefront kernel's), and the output must be finite and
+     within 2e-5 of the torch engine tier on the card (under the same mode);
+     then `python -m neuralampmodelercore_tpu_torch.cli.benchmodel` on the
+     flagship .nam with --engine --fast-tanh --batch 2048, as a subprocess;
   5. per-block times with CUDA events after warm-up, printed beside the
      card's name and power limit: the kernel (twice), its plain version, the
      torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
-     the head product as the library yardstick; then a doubling sweep of the
-     kernel for the real-time 48 kHz stream count of each model;
+     the head product as the library yardstick; the same for the fast-tanh
+     flagship, the flagship under a Tanh LUT (-5, 5, 512 points), the
+     wavefront flagship (B = 1024, 2048, 4096; its plain version is
+     step_plain_wf) and the amp ConvNet under fast-tanh; then a doubling
+     sweep of the kernel for the real-time 48 kHz stream count of each model
+     and of the two flagship paths;
   6. the agreement sweep (neuralampmodelercore_tpu_torch/tools/agreement.py):
      every kernel config against the torch engine tier, 8 blocks at B=256
-     and 512, T=64, within 2e-5; one JSON per config;
+     and 512, T=64, within 2e-5 (the mode configs with their mode set around
+     them); one JSON per config;
   7. a {"kernels": [...]} line, then as the last line
      {"ok": true, "device": {...}}.
 
@@ -76,7 +94,7 @@ AMP_CONVNET = {  # tests/test_pallas_convnet.py:63-70 of the JAX package
 }
 
 # The stack kernel's main paths (the flagship's is keyed by the kernel's name).
-STACK_PATHS = ("stack_step", "flagship_cond", "flagship_max")
+STACK_PATHS = ("stack_step", "flagship_cond", "flagship_max", "flagship_fast_tanh", "flagship_wavefront")
 # Stack feature cases against the plain version: (config in tools/agreement.py, T, B, blocks).
 STACK_FEATURE_CASES = [(f"film_{site}", 16, 2048, 6) for site in (
     "conv_pre_film", "conv_post_film", "input_mixin_pre_film", "input_mixin_post_film",
@@ -89,7 +107,9 @@ STACK_FEATURE_CASES = [(f"film_{site}", 16, 2048, 6) for site in (
 
 REPLACES = {
     "stack_step": ("neuralampmodelercore_tpu/ops/pallas/stack.py:1769",
-                   "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a-K1e)"),
+                   "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel (K1a-K1f)"),
+    "stack_wf_step": ("neuralampmodelercore_tpu/ops/pallas/stack.py:1053",
+                      "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel's wf_array behind WAVEFRONT (K1g)"),
     "lstm_step": ("neuralampmodelercore_tpu/ops/pallas/lstm.py:208",
                   "neuralampmodelercore_tpu/ops/pallas/lstm.py _make_kernel (K2)"),
     "convnet_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
@@ -163,18 +183,22 @@ def _check_err(name, err_y, err_s):
     return max(err_y, err_s)
 
 
-def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None):
+def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None, wavefront=False):
     """Same model, same inputs, state carried: a kernel with a flat ring-state
     buffer (stack, convnet) vs its plain version. A stack model with an LSTM
     condition pre-pass takes the pre-pass through K2 on the kernel's side and
     through K2's plain version on the plain side; each kernel must launch once
-    per block."""
+    per block. With ``wavefront`` (and stack.WAVEFRONT on) every block must
+    launch the wavefront kernel, held against step_plain_wf. Any global mode
+    is the caller's."""
     model = nam.load_model(make_nam(arch, config, seed=seed), device="cuda")
     reason = mod.supports(model.config, T, B)
     if reason is not None:
         raise RuntimeError(f"{name}: kernel refuses the config: {reason}")
     ep, sk = mod.prepare(model.config, model.params, T, B)
     layout = ep["layout"]
+    step_plain = mod.step_plain_wf if wavefront else mod.step_plain
+    wf_before = mod.wf_launches if wavefront else 0
     buf_plain = sk["buf"].clone()
     cstate = None
     if "condition" in sk:
@@ -192,7 +216,7 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
         if cstate is not None:
             cond = [lstm.step_plain(sub_ep["layout"], sub_ep["weights"], cstate["h"], cstate["c"], x)]
         yk, sk = mod.step(model.config, T, ep, sk, x)
-        yp = mod.step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap, *cond)
+        yp = step_plain(layout, ep["weights"], buf_plain, x, n % layout.wrap, *cond)
         torch.cuda.synchronize()
         err_y = max(err_y, (yk - yp).abs().max().item())
         err_s = max(err_s, (sk["buf"] - buf_plain).abs().max().item())
@@ -204,10 +228,43 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
     expect = (n_blocks, n_blocks if cstate is not None else 0)
     if launched != expect:
         raise RuntimeError(f"{name}: launches (kernel, K2) {launched}, expected {expect}")
+    if wavefront and mod.wf_launches - wf_before != n_blocks:
+        raise RuntimeError(f"{name}: {mod.wf_launches - wf_before} wavefront launches, expected {n_blocks}")
     prepass = f" launches stack {launched[0]}, lstm {launched[1]};" if cstate is not None else ""
     log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap}{prepass} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
     return _check_err(name, err_y, err_s)
+
+
+def compare_wavefront_switch(nam, stack, make_nam, config, T, B, n_blocks, seed):
+    """One stream whose blocks alternate between the wavefront kernel
+    (WAVEFRONT on) and the unpacked kernel, against the unpacked plain
+    version: the two kernels keep the same state."""
+    model = nam.load_model(make_nam("WaveNet", config, seed=seed), device="cuda")
+    ep, sk = stack.prepare(model.config, model.params, T, B)
+    layout = ep["layout"]
+    buf_plain = sk["buf"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err_y = err_s = 0.0
+    before = (stack.launches, stack.wf_launches)
+    try:
+        for i in range(n_blocks):
+            stack.WAVEFRONT = i % 2 == 0
+            x = randn((1, T, B), gen)
+            n = sk["n"]
+            yk, sk = stack.step(model.config, T, ep, sk, x)
+            yp = stack.step_plain(layout, ep["weights"], buf_plain, x, n)
+            torch.cuda.synchronize()
+            err_y = max(err_y, (yk - yp).abs().max().item())
+            err_s = max(err_s, (sk["buf"] - buf_plain).abs().max().item())
+    finally:
+        stack.WAVEFRONT = False
+    launched = (stack.launches - before[0], stack.wf_launches - before[1])
+    if launched != (n_blocks, (n_blocks + 1) // 2):
+        raise RuntimeError(f"wavefront switch: launches (all, wavefront) {launched}")
+    log(f"compare WaveNet wavefront on/off between blocks: T={T} B={B} blocks={n_blocks} launches {launched}; "
+        f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
+    return _check_err("wavefront switch", err_y, err_s)
 
 
 def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, fast=False):
@@ -259,11 +316,21 @@ def bound(work):
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
+def kernel_counts(modules):
+    """Launches per kernel: the stack module counts both of its kernels and,
+    apart, the wavefront kernel's."""
+    counts = {k: m.launches for k, m in modules.items()}
+    counts["stack_wf_step"] = modules["stack_step"].wf_launches
+    counts["stack_step"] -= counts["stack_wf_step"]
+    return counts
+
+
 def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=None):
     """load_model -> StreamEngine(auto) -> reset with prewarm -> 32 blocks,
     with every launch counter set to 0 just before and read just after; then
     the torch engine tier on the same blocks. ``name`` is the kernel the
-    path must run; ``path`` names the path where it is not the kernel's own."""
+    path must run; ``path`` names the path where it is not the kernel's own.
+    A global mode or the wavefront flag is the caller's."""
     label = path or name
     model = nam.load_model(doc)  # on the card by default
     if model.device.type != "cuda":
@@ -279,13 +346,14 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
 
     for m in modules.values():
         m.launches = 0
+    modules["stack_step"].wf_launches = 0
     state = engine.reset()  # prewarm on
     ys = []
     for x in blocks:
         y, state = engine.process(x, state)
         ys.append(y)
     torch.cuda.synchronize()
-    counts = {k: m.launches for k, m in modules.items()}
+    counts = kernel_counts(modules)
 
     expect = full + (1 if rem else 0) + N_BLOCKS
     launched = counts[name]
@@ -342,9 +410,11 @@ def cudnn_lstm(model, state_h, state_c):
     return run
 
 
-def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None):
+def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None, plain="step_plain"):
     """Kernel (twice, in turns with the plain version), plain version, torch
-    engine tier, bound and, where given, the library call, per batch size."""
+    engine tier, bound and, where given, the library call, per batch size.
+    A global mode or the wavefront flag is the caller's; ``plain`` names the
+    plain version (step_plain_wf for the wavefront path)."""
     label = path or name
     cfg, T = model.config, T_MAIN
     times = {}
@@ -365,7 +435,7 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
             buf = st["buf"].clone()
 
             def run_plain():
-                mod.step_plain(ep["layout"], ep["weights"], buf, x, 0)
+                getattr(mod, plain)(ep["layout"], ep["weights"], buf, x, 0)
 
         teng = nam.StreamEngine(model, batch=Bt, block_size=T, kernel="torch")
         tbox = {"s": teng.reset(prewarm=False)}
@@ -431,6 +501,25 @@ def realtime_sweep(mod, name, model, start, cap, gen, smi):
     return rt, sweep
 
 
+def run_benchmodel(doc) -> dict:
+    """The benchmodel entry point on the flagship .nam (written under build/),
+    with --engine --fast-tanh --batch 2048, as a user runs it: a subprocess
+    of this checkout. Its line is printed; a non-zero exit fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "build", "chip_smoke_flagship.nam")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    cmd = [sys.executable, "-m", "neuralampmodelercore_tpu_torch.cli.benchmodel", path, "--engine", "--fast-tanh",
+           "--batch", str(B_MAIN)]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    log(f"benchmodel --engine --fast-tanh --batch {B_MAIN}: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"benchmodel exited {proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return {"cmd": " ".join(cmd[1:]), "line": line}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -447,6 +536,7 @@ def main() -> int:
     from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
     modules = {"stack_step": stack, "lstm_step": lstm, "convnet_step": convnet}
+    libs = {"stack_step": stack.LIB, "stack_wf_step": stack.WF_LIB, "lstm_step": lstm.LIB, "convnet_step": convnet.LIB}
     report = {}
     t_start = time.perf_counter()
     # -- 1. the card ------------------------------------------------------
@@ -458,24 +548,24 @@ def main() -> int:
     report["device"] = {"kind": kind, "nvidia_smi": smi}
 
     # -- 2. build: one nvcc per source, all started together ---------------
-    def build(mod):
+    def build(lib):
         t0 = time.perf_counter()
-        so = mod.LIB.compile()
-        mod.LIB.load()
+        so = lib.compile()
+        lib.load()
         return so, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as ex:
-        built = dict(zip(modules, ex.map(build, modules.values())))
+    with ThreadPoolExecutor(len(libs)) as ex:
+        built = dict(zip(libs, ex.map(build, libs.values())))
     report["build_s"] = {"wall": time.perf_counter() - t0}
-    for name, mod in modules.items():
+    for name, lib in libs.items():
         so, secs = built[name]
         report["build_s"][name] = secs
-        log(f"build: {mod.LIB.source.name} -> {so.name} in {secs:.1f} s")
-        for line in mod.LIB.build_log.splitlines():
+        log(f"build: {lib.source.name} -> {so.name} in {secs:.1f} s")
+        for line in lib.build_log.splitlines():
             if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
-                log(f"  ptxas {mod.LIB.source.name}: {line.strip()}")
-    log(f"build: all {len(modules)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
+                log(f"  ptxas {lib.source.name}: {line.strip()}")
+    log(f"build: all {len(libs)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
 
     # -- 3. kernel vs plain -----------------------------------------------
     features = agreement.configs()  # name -> (architecture, config, seed)
@@ -512,10 +602,41 @@ def main() -> int:
          {"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 64, 1000, 6, False),
         ("2x16_fast_tanh_T64_B2048", "2 x 16 fast-tanh", LSTM_MAIN, 64, 2048, 6, True),
     ]
-    errs = {name: {} for name in modules}
+    # The modes inside the stack kernel and K3 (K1f): (kernel, key, name, config, T, B, blocks, fast-tanh, LUTs).
+    mode_cases = [
+        ("stack_step", "flagship_fast_tanh_T64_B2048", "flagship T=64 fast-tanh", wavenet_preset("standard"),
+         64, 2048, 8, True, ()),
+        ("stack_step", "flagship_tanh_lut_T16_B2048", "flagship T=16 Tanh LUT", wavenet_preset("standard"),
+         16, 2048, 12, False, (("Tanh", -5.0, 5.0, 512),)),
+        ("stack_step", "gated_bottleneck_sigmoid_lut_T16_B2048", "gated_bottleneck Sigmoid LUT",
+         features["gated_bottleneck"][1], 16, 2048, 6, False, (("Sigmoid", -2.0, 2.0, 17),)),
+        ("stack_step", "depthwise_silu_lut_T16_B2048", "depthwise SiLU LUT", features["depthwise"][1],
+         16, 2048, 6, False, (("SiLU", -1.5, 1.5, 40),)),
+        ("convnet_step", "amp_fast_tanh_T64_B2048", "amp fast-tanh", AMP_CONVNET, 64, 2048, 12, True, ()),
+        ("convnet_step", "amp_tanh_lut_T64_B2048", "amp Tanh LUT", AMP_CONVNET, 64, 2048, 12, False,
+         (("Tanh", -1.0, 1.0, 20),)),
+    ]
+    # The wavefront kernel (K1g) against step_plain_wf: (key, name, config, T, B, blocks).
+    wf_cases = [
+        ("flagship_T64_B2048", "flagship T=64", wavenet_preset("standard"), 64, 2048, 8),
+        ("flagship_T16_B2048", "flagship T=16", wavenet_preset("standard"), 16, 2048, 12),
+        ("flagship_T20_B2048", "flagship T=20 (sub-tiles of 5)", wavenet_preset("standard"), 20, 2048, 12),
+        ("splice_T32_B2048", "offset splice T=32", splice_config(), 32, 2048, 10),
+    ]
+    errs = {name: {} for name in libs}
     for kname, (arch, mod, cases) in ring_cases.items():
         for i, (key, name, config, T, B, n) in enumerate(cases):
             errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i, lstm)
+    for i, (kname, key, name, config, T, B, n, fast, luts) in enumerate(mode_cases):
+        arch, mod = ring_cases[kname][:2]
+        with agreement.modes(fast, luts):
+            errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i)
+    with agreement.modes(wavefront=True):
+        for i, (key, name, config, T, B, n) in enumerate(wf_cases):
+            errs["stack_wf_step"][key] = compare_ring_kernel(nam, stack, make_nam, "WaveNet", f"wavefront {name}",
+                                                             config, T, B, n, SEED + i, wavefront=True)
+    errs["stack_wf_step"]["switch_T64_B2048"] = compare_wavefront_switch(
+        nam, stack, make_nam, wavenet_preset("standard"), 64, 2048, 8, SEED)
     for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
         errs["lstm_step"][key] = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
     report["max_abs_err"] = errs
@@ -534,8 +655,14 @@ def main() -> int:
     for path, blocks in (("flagship_cond", 80), ("flagship_max", 65)):
         main_models[path], main[path] = run_main_path(
             nam, modules, "stack_step", make_nam("WaveNet", features[path][1], seed=SEED), blocks, 0, gen, path)
+    # The flagship with fast-tanh on before load_model (K1f), and on the wavefront kernel (K1g).
+    for path, kernel in (("flagship_fast_tanh", "stack_step"), ("flagship_wavefront", "stack_wf_step")):
+        with agreement.mode(path):
+            main_models[path], main[path] = run_main_path(
+                nam, modules, kernel, make_nam("WaveNet", wavenet_preset("standard"), seed=SEED), 64, 0, gen, path)
     report["main_path"] = main
     torch.cuda.empty_cache()
+    report["benchmodel"] = run_benchmodel(make_nam("WaveNet", wavenet_preset("standard"), seed=SEED))
 
     # -- 5. timing ------------------------------------------------------------
     report["times"] = {
@@ -545,14 +672,28 @@ def main() -> int:
         "convnet_step": time_model(nam, convnet, "convnet_step", main_models["convnet_step"], (2048, 8192, 32768),
                                    gen, smi),
         **{path: time_model(nam, stack, "stack_step", main_models[path], (2048,), gen, smi, path=path)
-           for path in STACK_PATHS[1:]},
+           for path in ("flagship_cond", "flagship_max")},
     }
+    with agreement.mode("flagship_fast_tanh"):
+        report["times"]["flagship_fast_tanh"] = time_model(nam, stack, "stack_step", main_models["flagship_fast_tanh"],
+                                                           (2048,), gen, smi, path="flagship_fast_tanh")
+        report["times"]["convnet_fast_tanh"] = time_model(nam, convnet, "convnet_step", main_models["convnet_step"],
+                                                          (2048,), gen, smi, path="convnet_fast_tanh")
+    with agreement.mode("flagship_lut"):
+        report["times"]["flagship_lut"] = time_model(nam, stack, "stack_step", main_models["stack_step"], (2048,), gen,
+                                                     smi, path="flagship_lut")
+    with agreement.mode("flagship_wavefront"):
+        report["times"]["flagship_wavefront"] = time_model(
+            nam, stack, "stack_wf_step", main_models["flagship_wavefront"], (1024, 2048, 4096), gen, smi,
+            path="flagship_wavefront", plain="step_plain_wf")
     report["realtime_streams"], report["sweep_ms"] = {}, {}
     for path, mod, start, cap in (("stack_step", stack, 4096, 65536), ("lstm_step", lstm, 8192, 1 << 20),
                                   ("convnet_step", convnet, 8192, 1 << 18), ("flagship_cond", stack, 1024, 65536),
-                                  ("flagship_max", stack, 1024, 65536)):
-        report["realtime_streams"][path], report["sweep_ms"][path] = realtime_sweep(
-            mod, path, main_models[path], start, cap, gen, smi)
+                                  ("flagship_max", stack, 1024, 65536), ("flagship_fast_tanh", stack, 2048, 65536),
+                                  ("flagship_wavefront", stack, 2048, 65536)):
+        with agreement.mode(path):
+            report["realtime_streams"][path], report["sweep_ms"][path] = realtime_sweep(
+                mod, path, main_models[path], start, cap, gen, smi)
 
     # -- 6. agreement sweep: every kernel config against the torch tier -------
     agree_dir = os.path.join(os.path.dirname(args.out) or ".", "agreement") if args.out else "build/agreement"
@@ -570,15 +711,16 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
     kernels = []
-    for name in modules:
+    for name, lib in libs.items():
         replaces, counterpart = REPLACES[name]
         entry = {
             "name": name,
             "route": "cuda",
-            "source": f"neuralampmodelercore_tpu_torch/csrc/{modules[name].LIB.source.name}",
+            "source": f"neuralampmodelercore_tpu_torch/csrc/{lib.source.name}",
             "replaces": replaces,
             "tpu_counterpart": counterpart,
-            **numbers(name),
+            # The wavefront kernel's numbers are those of its main path, the flagship on it.
+            **numbers("flagship_wavefront" if name == "stack_wf_step" else name),
             "max_abs_err": max(errs[name].values()),
             "shape": {"B": B_MAIN, "T": T_MAIN},
         }

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 JSON = Union[str, dict]
@@ -174,15 +175,26 @@ def lut_active() -> bool:
     return bool(_luts)
 
 
+def modes() -> Tuple[bool, Tuple]:
+    """The global modes as one comparable value: a kernel bakes them in when
+    its weights are prepared, and its step checks they have not changed."""
+    return using_fast_tanh, tuple(sorted(_luts.items()))
+
+
 def _lut_apply(x: torch.Tensor, min_x: float, max_x: float, n: int, fn_name: str) -> torch.Tensor:
     """Clamped uniform-grid linear-interpolation lookup
     (reference: FastLUTActivation::apply, NAM/activations.h:393-410), with
     the table entries recomputed at the two bracketing grid points."""
-    fn = _LUT_FNS[fn_name]
     step = (max_x - min_x) / (n - 1)
+    return _lut_interp(x, min_x, max_x, 1.0 / step, step, n - 1, _LUT_FNS[fn_name])
+
+
+def _lut_interp(x, min_x, max_x, inv_step, step, n_minus_1, fn) -> torch.Tensor:
+    """``_lut_apply``'s arithmetic on its float32 constants (scalars are cast
+    to x's float32 by torch, as the kernels receive them)."""
     xc = torch.clamp(x, min_x, max_x)
-    f_idx = (xc - min_x) * (1.0 / step)
-    i = torch.clamp(f_idx.to(torch.int32), 0, n - 2)
+    f_idx = (xc - min_x) * inv_step
+    i = torch.clamp(f_idx.to(torch.int32), 0, int(n_minus_1) - 1)
     fi = i.to(x.dtype)
     frac = f_idx - fi
     g0 = min_x + fi * step
@@ -190,7 +202,78 @@ def _lut_apply(x: torch.Tensor, min_x: float, max_x: float, n: int, fn_name: str
     y1 = fn(g0 + step)
     y = y0 + (y1 - y0) * frac
     # Edge case at max (reference: NAM/activations.h:403-405).
-    return torch.where(f_idx >= n - 1, fn(torch.full_like(x, max_x)), y)
+    return torch.where(f_idx >= n_minus_1, fn(torch.full_like(x, max_x)), y)
+
+
+# =============================================================================
+# What the port's kernels run: a code and float32 parameters per activation
+# =============================================================================
+
+#: Codes of the ``Act`` enum in csrc/activations.cuh (11 is stack.cu's
+#: per-channel PReLU); LUT codes take the base function of the table.
+KERNEL_CODES = {
+    "Identity": 0, "Tanh": 1, "ReLU": 2, "Sigmoid": 3, "Hardtanh": 4,
+    "LeakyReLU": 5, "PReLU": 5, "SiLU": 6, "Softsign": 7, "Hardswish": 8,
+    "Fasttanh": 9, "LeakyHardtanh": 10,
+}
+LUT_CODES = {"Tanh": 12, "Sigmoid": 13, "SiLU": 14}
+KERNEL_PARAMS = 8  # parameter floats a kernel reads for one activation
+
+
+def kernel_code(config: "ActivationConfig") -> Tuple[int, np.ndarray]:
+    """The activation as a kernel runs it under the current global modes:
+    its code and KERNEL_PARAMS float32 parameters, with ``apply``'s
+    precedence. Tanh: fast-tanh, else a Tanh LUT, else tanh. Sigmoid: only a
+    Sigmoid LUT changes it (fast-tanh does not rebind Sigmoid). SiLU: only a
+    SiLU LUT. A LUT's parameters are min_x, max_x, 1/step, step and n - 1, as
+    the float32 values ``_lut_apply`` computes with."""
+    t = config.type
+    prm = np.zeros(KERNEL_PARAMS, np.float32)
+    if t == "Tanh" and using_fast_tanh:
+        return KERNEL_CODES["Fasttanh"], prm
+    if t in _luts:
+        min_x, max_x, n = _luts[t]
+        step = (max_x - min_x) / (n - 1)
+        prm[:5] = [min_x, max_x, 1.0 / step, step, n - 1]
+        return LUT_CODES[t], prm
+    if t in ("LeakyReLU", "PReLU"):
+        prm[0] = prelu_slopes(config)[0] if t == "PReLU" else (
+            config.negative_slope if config.negative_slope is not None else 0.01)
+    elif t == "LeakyHardtanh":
+        prm[:4] = [
+            config.min_val if config.min_val is not None else -1.0,
+            config.max_val if config.max_val is not None else 1.0,
+            config.min_slope if config.min_slope is not None else 0.01,
+            config.max_slope if config.max_slope is not None else 0.01,
+        ]
+    return KERNEL_CODES[t], prm
+
+
+_KERNEL_FNS = {
+    KERNEL_CODES["Tanh"]: torch.tanh,
+    KERNEL_CODES["ReLU"]: lambda v: torch.clamp_min(v, 0.0),
+    KERNEL_CODES["Sigmoid"]: torch.sigmoid,
+    KERNEL_CODES["Hardtanh"]: hard_tanh,
+    KERNEL_CODES["SiLU"]: _LUT_FNS["SiLU"],
+    KERNEL_CODES["Softsign"]: softsign,
+    KERNEL_CODES["Hardswish"]: hardswish,
+    KERNEL_CODES["Fasttanh"]: fast_tanh,
+}
+
+
+def kernel_apply(code: int, prm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A kernel's activation ``code`` with its parameters ``prm`` (float32,
+    at least KERNEL_PARAMS), in torch: the plain versions' activation."""
+    if code in _KERNEL_FNS:
+        return _KERNEL_FNS[code](v)
+    if code == KERNEL_CODES["LeakyReLU"]:
+        return torch.where(v > 0, v, prm[0] * v)
+    if code == KERNEL_CODES["LeakyHardtanh"]:
+        return leaky_hardtanh(v, prm[0], prm[1], prm[2], prm[3])
+    for name, lut in LUT_CODES.items():
+        if code == lut:
+            return _lut_interp(v, *(float(p) for p in prm[:5]), _LUT_FNS[name])
+    return v  # Identity
 
 
 # =============================================================================

@@ -36,7 +36,7 @@ import torch
 
 from .. import activations as act
 from . import _build
-from .stack import ACT_CODES, MAX_T, SMEM_LIMIT, _act_params, _dense_conv, _np, _pad4, _streams_per_cta
+from .stack import MAX_T, SMEM_LIMIT, _dense_conv, _np, _pad4, _streams_per_cta
 
 #: Kernel launches so far; ``step_plain`` does not count.
 launches = 0
@@ -54,7 +54,8 @@ P_HEADER, LF = 10, 8
 
 def supports(cfg, T: int, batch: int) -> Optional[str]:
     """None if the kernel runs this (config, block size, batch), else why not.
-    Any batch (the ragged tile is masked) and any dilation."""
+    Any batch (the ragged tile is masked), any dilation, and the activation
+    under the fast-tanh and LUT modes (baked in at ``prepare``)."""
     from ...models.convnet import ConvNetConfig
 
     if not isinstance(cfg, ConvNetConfig):
@@ -65,14 +66,10 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
         return f"block size T={T} outside 1..{MAX_T} (one thread per frame and stream)"
     if not cfg.dilations:
         return "no conv blocks"
-    if act.using_fast_tanh:
-        return "fast-tanh mode is on (ROADMAP K1f)"
-    if act.lut_active():
-        return "LUT activation mode is on (ROADMAP K1f)"
     if max(cfg.in_channels, cfg.channels, cfg.out_channels) > MAX_CHANNELS:
         return f"more than {MAX_CHANNELS} channels"
     a = cfg.activation
-    if a.type not in ACT_CODES:
+    if a.type not in act.KERNEL_CODES:
         return f"activation {a.type} not in the kernel"
     if a.type == "PReLU" and len(act.prelu_slopes(a)) > 1:
         return "per-channel PReLU not in the kernel"
@@ -124,12 +121,13 @@ class Layout:
     c_max: int  # register tile of the kernel instance (4/8/16/32)
     head_w: int  # (Cout, C)
     head_b: int
+    act_code: int  # as activations.kernel_code resolves the activation under ``modes``
     act_prm: int
     seg_max: int
     state_size: int
     wrap: int
     smem_bytes: int
-    activation: act.ActivationConfig
+    modes: Tuple  # activations.modes() at prepare
     layers: Tuple[LayerLayout, ...]
 
 
@@ -175,11 +173,11 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
             wrap = wrap * M // math.gcd(wrap, M)
     head_w = put(_np(params["head_w"]).T)  # (Cout, C)
     head_b = put(_np(params["head_b"]))
-    act_prm = put(np.asarray(_act_params(cfg.activation), np.float32))
+    code, prm = act.kernel_code(cfg.activation)
     layout = Layout(
         T=T, B=batch, BS=_streams_per_cta(T), Cin=cfg.in_channels, C=C, Cout=cfg.out_channels, c_max=CP,
-        head_w=head_w, head_b=head_b, act_prm=act_prm, seg_max=max(lp.seg_len for lp in layers),
-        state_size=state_size, wrap=wrap, smem_bytes=_smem_bytes(cfg, T), activation=cfg.activation,
+        head_w=head_w, head_b=head_b, act_code=code, act_prm=put(prm), seg_max=max(lp.seg_len for lp in layers),
+        state_size=state_size, wrap=wrap, smem_bytes=_smem_bytes(cfg, T), modes=act.modes(),
         layers=tuple(layers),
     )
     return layout, np.concatenate(chunks)
@@ -189,7 +187,7 @@ def _pack_plan(layout: Layout) -> np.ndarray:
     """The int64 plan the kernel reads (field order as in convnet.cu)."""
     plan = np.zeros(P_HEADER + LF * len(layout.layers), np.int64)
     plan[:9] = [len(layout.layers), layout.Cin, layout.Cout, layout.C, layout.head_w, layout.head_b,
-                layout.seg_max, ACT_CODES[layout.activation.type], layout.act_prm]
+                layout.seg_max, layout.act_code, layout.act_prm]
     for i, lp in enumerate(layout.layers):
         base = P_HEADER + LF * i
         plan[base : base + 7] = [lp.K, lp.d, lp.M, lp.ring, lp.seg, lp.seg_len, lp.cin]
@@ -228,6 +226,7 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
     """One block through every layer, reading the weights back out of the
     packed buffer and writing the rings in place. x (Cin, T, B) -> (Cout, T, B)."""
     T, B, C, CP = layout.T, layout.B, layout.C, layout.c_max
+    prm = weights[layout.act_prm : layout.act_prm + act.KERNEL_PARAMS]
     h = x
     for lp, ring in zip(layout.layers, rings(layout, buf)):
         K, d, cin = lp.K, lp.d, lp.cin
@@ -241,7 +240,7 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
         z = torch.matmul(conv_w, torch.cat(wins, dim=0).reshape(K * cin, T * B)).view(C, T, B)
         z = z * mul[:, None, None] + add[:, None, None]
         ring[n % lp.M].copy_(h)
-        h = act.apply(layout.activation, z, channel_axis=0)
+        h = act.kernel_apply(layout.act_code, prm, z)
     head_w = weights[layout.head_w : layout.head_w + layout.Cout * C].view(layout.Cout, C)
     head_b = weights[layout.head_b : layout.head_b + layout.Cout]
     return torch.matmul(head_w, h.reshape(C, T * B)).view(layout.Cout, T, B) + head_b[:, None, None]
@@ -291,8 +290,9 @@ def step(cfg, T: int, eparams, state, x: torch.Tensor):
     """Block step, engine (C, T, B) convention: x (Cin, T, B) -> (y (Cout, T, B), state').
     A CUDA tensor goes through the kernel, a CPU tensor through ``step_plain``."""
     layout: Layout = eparams["layout"]
-    if act.using_fast_tanh or act.lut_active():
-        raise ValueError("fast-tanh / LUT mode was switched on after the fused engine was built")
+    if act.modes() != layout.modes:
+        raise ValueError("fast-tanh / LUT modes changed since the fused engine was built: "
+                         f"built under {layout.modes}, now {act.modes()}")
     n = state["n"] % layout.wrap
     if x.is_cuda:
         y = launch(layout, eparams["weights"], eparams["plan"], state["buf"], x.contiguous(), n)

@@ -10,8 +10,10 @@ the JAX package's tier-against-tier tolerance). It writes
 one JSON per config into ``--out``. Its configs: those of
 ``AGREEMENT_r05.json`` that the repository builds without the reference's
 example models (post_head, depthwise, lstm_2x8, convnet, and the flagship,
-whose shape is ``wavenet_a1_standard``'s), and every WaveNet feature of the
-stack kernel, the two feature main paths of ``chip_smoke.py`` included.
+whose shape is ``wavenet_a1_standard``'s), every WaveNet feature of the
+stack kernel, the two feature main paths of ``chip_smoke.py`` included, and
+the flagship and the ConvNet under the fast-tanh and LUT modes and on the
+wavefront path (``MODES``: each is swept with its mode set around it).
 
     python3 -m neuralampmodelercore_tpu_torch.tools.agreement [--out DIR]
 
@@ -22,6 +24,7 @@ tier is each kernel's plain version.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -32,6 +35,42 @@ import numpy as np
 DILATIONS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512]
 T = 64  # block size of every sweep
 ATOL = 2e-5  # tier-against-tier tolerance of the JAX package (tests/test_pallas_stack.py:32)
+
+
+# Configs swept under a global mode or the wavefront flag:
+# name -> (fast-tanh, LUTs as (name, min_x, max_x, n_points), WAVEFRONT).
+MODES = {
+    "flagship_fast_tanh": (True, (), False),
+    "flagship_lut": (False, (("Tanh", -5.0, 5.0, 512),), False),
+    "convnet_fast_tanh": (True, (), False),
+    "flagship_wavefront": (False, (), True),
+}
+
+
+@contextlib.contextmanager
+def modes(fast_tanh: bool = False, luts=(), wavefront: bool = False):
+    """Switch the fast-tanh mode, LUTs ((name, min_x, max_x, n_points) each)
+    and the stack kernel's WAVEFRONT flag on, and off again on exit."""
+    from ..ops import activations as act
+    from ..ops.cuda import stack
+
+    try:
+        if fast_tanh:
+            act.enable_fast_tanh()
+        for lut in luts:
+            act.enable_lut(*lut)
+        stack.WAVEFRONT = wavefront
+        yield
+    finally:
+        act.disable_fast_tanh()
+        for lut in luts:
+            act.disable_lut(lut[0])
+        stack.WAVEFRONT = False
+
+
+def mode(name: str):
+    """``modes`` of config ``name`` (none for a config not in MODES)."""
+    return modes(*MODES.get(name, (False, (), False)))
 
 
 def film(shift: bool = True) -> dict:
@@ -125,6 +164,8 @@ def configs() -> Dict[str, Tuple[str, dict, int]]:
             wavenet_preset("standard"), make_nam("WaveNet", wavenet_preset("small"), seed=21)), 1234),
         "flagship_max": ("WaveNet", flagship_max(), 1234),
     }
+    for name in MODES:  # the flagship or the ConvNet under a mode
+        out[name] = out["convnet" if name.startswith("convnet") else "flagship"]
     for i, (site, shift) in enumerate((
         ("conv_pre_film", True), ("conv_post_film", False), ("input_mixin_pre_film", True),
         ("input_mixin_post_film", True), ("activation_pre_film", False), ("activation_post_film", True),
@@ -138,8 +179,6 @@ def sweep(names: Optional[Iterable[str]] = None, batches=(256, 512), blocks: int
           log: Callable[[str], None] = print) -> Dict[str, dict]:
     """Fused tier against torch tier per config and batch; returns (and, with
     ``out``, writes) {name: {"B<b>": {"max_abs_diff", "ok"}, "ok"}}."""
-    import torch
-
     import neuralampmodelercore_tpu_torch as nam
     from .generate import make_nam
 
@@ -147,34 +186,42 @@ def sweep(names: Optional[Iterable[str]] = None, batches=(256, 512), blocks: int
     results = {}
     for name in names or table:
         arch, config, seed = table[name]
-        model = nam.load_model(make_nam(arch, config, seed=seed), device=device)
-        res = {}
-        for B in batches:
-            fe = nam.StreamEngine(model, batch=B, block_size=T, kernel="fused")
-            te = nam.StreamEngine(model, batch=B, block_size=T, kernel="torch")
-            fs, ts = fe.reset(prewarm=False), te.reset(prewarm=False)
-            rng = np.random.default_rng(seed)
-            worst = 0.0
-            with torch.no_grad():
-                for _ in range(blocks):
-                    x = torch.as_tensor(
-                        (rng.standard_normal((model.num_input_channels, T, B)) * 0.3).astype(np.float32), device=device)
-                    yf, fs = fe.step(fs, x)
-                    yt, ts = te.step(ts, x)
-                    worst = max(worst, (yf - yt).abs().max().item())
-                    if not torch.isfinite(yf).all():
-                        worst = float("inf")
-            res[f"B{B}"] = {"max_abs_diff": worst, "ok": worst <= ATOL}
-            log(f"{'OK  ' if worst <= ATOL else 'FAIL'} {name:28s} B={B} T={T}: max|fused - torch| {worst:.3e}")
-            del fe, te, fs, ts
-        res["ok"] = all(r["ok"] for k, r in res.items() if k.startswith("B"))
+        with mode(name):
+            res = _sweep_one(nam, make_nam(arch, config, seed=seed), name, seed, batches, blocks, device, log)
         results[name] = res
         if out:
             os.makedirs(out, exist_ok=True)
             with open(os.path.join(out, f"{name}.json"), "w") as f:
                 json.dump({"config": name, "architecture": arch, "seed": seed, "block_size": T, "blocks": blocks,
-                           "atol": ATOL, "device": device, **res}, f, indent=1)
+                           "atol": ATOL, "device": device, "mode": MODES.get(name), **res}, f, indent=1)
     return results
+
+
+def _sweep_one(nam, doc, name, seed, batches, blocks, device, log) -> dict:
+    import torch
+
+    model = nam.load_model(doc, device=device)
+    res = {}
+    for B in batches:
+        fe = nam.StreamEngine(model, batch=B, block_size=T, kernel="fused")
+        te = nam.StreamEngine(model, batch=B, block_size=T, kernel="torch")
+        fs, ts = fe.reset(prewarm=False), te.reset(prewarm=False)
+        rng = np.random.default_rng(seed)
+        worst = 0.0
+        with torch.no_grad():
+            for _ in range(blocks):
+                x = torch.as_tensor(
+                    (rng.standard_normal((model.num_input_channels, T, B)) * 0.3).astype(np.float32), device=device)
+                yf, fs = fe.step(fs, x)
+                yt, ts = te.step(ts, x)
+                worst = max(worst, (yf - yt).abs().max().item())
+                if not torch.isfinite(yf).all():
+                    worst = float("inf")
+        res[f"B{B}"] = {"max_abs_diff": worst, "ok": worst <= ATOL}
+        log(f"{'OK  ' if worst <= ATOL else 'FAIL'} {name:28s} B={B} T={T}: max|fused - torch| {worst:.3e}")
+        del fe, te, fs, ts
+    res["ok"] = all(r["ok"] for k, r in res.items() if k.startswith("B"))
+    return res
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,9 @@
 Each TREE is the root of a checkout (one holding neuralampmodelercore_tpu_torch/).
 ``--config`` names a config of this checkout's ``tools/agreement.py``, passed to
 every tree as a .nam document; its architecture picks the kernel (WaveNet: the
-stack kernel, LSTM: K2, ConvNet: K3). Every tree builds that kernel (all builds
+stack kernel, LSTM: K2, ConvNet: K3), and a config of ``agreement.MODES`` runs
+under its fast-tanh / LUT mode or on the wavefront path in every tree (a
+tree whose kernel refuses that is skipped). Every tree builds that kernel (all builds
 started together, each into the tree's own build/kernels/), then each
 measurement runs in its own process with that tree first on sys.path, in the
 order A, B, ..., B, A, so that a drift of the card shows as a difference
@@ -32,7 +34,7 @@ B, T = 2048, 64
 
 WORKER = r"""
 import importlib, json, sys, time
-tree, kernel, doc_path, B, T, mode = sys.argv[1:7]
+tree, kernel, doc_path, B, T, mode, modes = sys.argv[1:8]
 B, T = int(B), int(T)
 sys.path.insert(0, tree)
 import torch
@@ -40,9 +42,21 @@ import neuralampmodelercore_tpu_torch as nam
 mod = importlib.import_module("neuralampmodelercore_tpu_torch.ops.cuda." + kernel)
 if mode == "build":
     t0 = time.perf_counter()
-    mod.LIB.compile()
+    for lib in (mod.LIB, getattr(mod, "WF_LIB", None)):
+        if lib is not None:
+            lib.compile()
     print(json.dumps({"build_s": time.perf_counter() - t0}))
     sys.exit(0)
+fast, luts, wavefront = json.loads(modes)
+if fast:
+    nam.activations.enable_fast_tanh()
+for lut in luts:
+    nam.activations.enable_lut(*lut)
+if wavefront and not hasattr(mod, "WAVEFRONT"):
+    print(json.dumps({"refused": "no wavefront path"}))
+    sys.exit(0)
+if wavefront:
+    mod.WAVEFRONT = True
 model = nam.load_model(json.load(open(doc_path)))
 reason = mod.supports(model.config, T, B)
 if reason is not None:
@@ -67,8 +81,8 @@ print(json.dumps({"ms": a.elapsed_time(b) / 20}))
 """
 
 
-def _worker(tree: str, kernel: str, doc: str, mode: str) -> dict:
-    out = subprocess.run([sys.executable, "-c", WORKER, tree, kernel, doc, str(B), str(T), mode],
+def _worker(tree: str, kernel: str, doc: str, mode: str, modes: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", WORKER, tree, kernel, doc, str(B), str(T), mode, modes],
                          capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{tree} ({mode}) failed:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
@@ -88,7 +102,7 @@ def main(argv=None) -> int:
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
-    from .agreement import configs
+    from .agreement import MODES, configs
     from .generate import make_nam
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -97,17 +111,18 @@ def main(argv=None) -> int:
     trees = [os.path.abspath(t) for t in args.trees]
     arch, config, seed = configs()[args.config]
     kernel = KERNELS[arch]
+    modes = json.dumps(MODES.get(args.config, (False, (), False)))
     doc = Path(__file__).resolve().parents[2] / "build" / f"kernel_ab_{args.config}.nam"
     doc.parent.mkdir(parents=True, exist_ok=True)
     doc.write_text(json.dumps(make_nam(arch, config, seed=seed)))
     try:
         with ThreadPoolExecutor(len(trees)) as ex:
-            builds = list(ex.map(lambda t: _worker(t, kernel, str(doc), "build"), trees))
+            builds = list(ex.map(lambda t: _worker(t, kernel, str(doc), "build", modes), trees))
         for tree, b in zip(trees, builds):
             print(f"build {kernel} {tree}: {b['build_s']:.1f} s", flush=True)
         times = {t: [] for t in trees}
         for tree in trees + trees[::-1]:
-            res = _worker(tree, kernel, str(doc), "time")
+            res = _worker(tree, kernel, str(doc), "time", modes)
             if "refused" in res:
                 print(f"{tree}: {kernel} refuses {args.config}: {res['refused']}", flush=True)
                 continue

@@ -23,9 +23,9 @@ from neuralampmodelercore_tpu.models.engine import StreamEngine as JEngine
 from neuralampmodelercore_tpu.ops.pallas import convnet as jconv
 from neuralampmodelercore_tpu.tools.generate import make_nam, with_condition_dsp
 from neuralampmodelercore_tpu_torch.convert import params_from_jax
-from neuralampmodelercore_tpu_torch.ops import activations as tact
 from neuralampmodelercore_tpu_torch.ops.cuda import backend_for
 from neuralampmodelercore_tpu_torch.ops.cuda import convnet as tconv
+from test_torch_stack_modes import modes
 
 ATOL = 2e-5
 B = 128  # one lane tile: the JAX kernel's smallest batch
@@ -232,22 +232,18 @@ def test_supports_gate_and_backend():
 
 @pytest.mark.parametrize("mode", ["fast_tanh", "lut"])
 def test_supports_refuses_fast_tanh_and_lut_modes(mode):
-    """Those modes belong to K1f; auto takes the torch tier, which honours them."""
+    """supports admits both modes (K1f), the fused tier matches the JAX
+    Pallas kernel under the same mode (on a Tanh ConvNet), and a mode
+    switched on after an engine was built raises."""
     _, tm = _models("no_bn_bias_relu")
     eng = tnam.StreamEngine(tm, batch=4, block_size=16, kernel="fused")
     state = eng.reset(prewarm=False)
-    if mode == "fast_tanh":
-        tact.enable_fast_tanh()
-    else:
-        tact.enable_lut("Tanh", -3.0, 3.0, 64)
-    try:
-        assert "K1f" in tconv.supports(tm.config, 16, 4)
-        assert tnam.StreamEngine(tm, batch=4, block_size=16).kernel == "torch"
-        with pytest.raises(ValueError, match="fast-tanh / LUT"):
+    with modes(*((True, ()) if mode == "fast_tanh" else (False, (("Tanh", -3.0, 3.0, 64),)))):
+        jm, ta = _models("groups2")
+        assert tconv.supports(tm.config, 16, 4) is None and tconv.supports(ta.config, 16, B) is None
+        _engine_run(jm, ta, "fused", T=16, batch=B, n_blocks=3, seed=12, jtier="pallas")
+        with pytest.raises(ValueError, match="modes changed since the fused engine was built"):
             eng.process(np.zeros((4, 16), np.float32), state)
-    finally:
-        tact.disable_fast_tanh()
-        tact.disable_lut("Tanh")
 
 
 def test_work_counts_for_the_bound():

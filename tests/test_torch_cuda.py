@@ -1,8 +1,11 @@
-"""Tests that need the CUDA card: each kernel (stack, lstm, convnet) against
-its plain version on the same CUDA inputs (for the stack kernel, every
-feature: gating, bottleneck, head1x1, FiLM sites, k>1 head rechannel,
-post-stack head, condition chains and the LSTM pre-pass), each main path's
-choice of its kernel with its exact launch count, and the agreement sweep.
+"""Tests that need the CUDA card: each kernel (stack, stack_wf, lstm,
+convnet) against its plain version on the same CUDA inputs (for the stack
+kernel, every feature: gating, bottleneck, head1x1, FiLM sites, k>1 head
+rechannel, post-stack head, condition chains and the LSTM pre-pass; the
+fast-tanh and LUT modes in the stack kernel and in K3; the wavefront kernel
+against step_plain_wf, and a stream switching between the two stack
+kernels), each main path's choice of its kernel with its exact launch count,
+and the agreement sweep.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch. Every test is marked ``cuda`` and skips, inside the
@@ -255,3 +258,120 @@ def test_agreement_sweep_on_the_card(tmp_path):
                           blocks=4, out=str(tmp_path))
     assert all(r["ok"] for r in res.values()), res
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(f"{k}.json" for k in res)
+
+
+# K1f: the modes inside the stack and ConvNet kernels. (case, architecture,
+# config, T, B, fast-tanh, LUTs: (name, min_x, max_x, n_points) each).
+MODE_CASES = [
+    ("flagship_fast_tanh", "WaveNet", wavenet_preset("standard"), 64, 1024, True, ()),
+    ("flagship_tanh_lut", "WaveNet", wavenet_preset("standard"), 16, 1000, False, (("Tanh", -5.0, 5.0, 512),)),
+    ("gated_sigmoid_lut", "WaveNet", agreement.configs()["gated_bottleneck"][1], 16, 300, False,
+     (("Sigmoid", -2.0, 2.0, 17),)),
+    ("depthwise_silu_lut", "WaveNet", agreement.configs()["depthwise"][1], 16, 300, False,
+     (("SiLU", -1.5, 1.5, 40),)),
+    ("gated_fast_tanh_sigmoid_lut", "WaveNet", agreement.configs()["gated_bottleneck"][1], 16, 300, True,
+     (("Sigmoid", -3.0, 3.0, 64),)),
+    ("amp_convnet_fast_tanh", "ConvNet", AMP_CONVNET, 64, 1024, True, ()),
+    ("amp_convnet_tanh_lut", "ConvNet", AMP_CONVNET, 16, 1000, False, (("Tanh", -1.0, 1.0, 20),)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,arch,config,T,B,fast,luts", MODE_CASES, ids=[c[0] for c in MODE_CASES])
+def test_modes_kernel_matches_plain_version(case, arch, config, T, B, fast, luts):
+    """fast-tanh and LUT modes inside the stack kernel and K3, against their
+    plain versions under the same modes, state carried over 6 blocks."""
+    _cuda_or_skip()
+    mod = tstack if arch == "WaveNet" else tconv
+    tm = tnam.load_model(make_nam(arch, config, seed=2))
+    with agreement.modes(fast, luts):
+        assert mod.supports(tm.config, T, B) is None
+        ep, sk = mod.prepare(tm.config, tm.params, T, B)
+        buf = sk["buf"].clone()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        before = mod.launches
+        for _ in range(6):
+            x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+            n = sk["n"]
+            yk, sk = mod.step(tm.config, T, ep, sk, x)
+            yp = mod.step_plain(ep["layout"], ep["weights"], buf, x, n)
+            torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+        assert mod.launches == before + 6
+
+
+# K1g: the wavefront kernel against step_plain_wf. T=20: sub-tiles of 5
+# frames, 25 streams per CTA, so sub-tiles split warps.
+WF_CASES = [("flagship", 64, 1024), ("flagship", 16, 1000), ("flagship", 20, 300), ("post_head", 16, 300),
+            ("head_k16", 64, 300), ("depthwise", 64, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,T,B", WF_CASES)
+def test_wavefront_kernel_matches_plain_version(name, T, B):
+    _cuda_or_skip()
+    arch, config, seed = agreement.configs()[name]
+    tm = tnam.load_model(make_nam(arch, config, seed=seed))
+    with agreement.modes(wavefront=True):
+        ep, sk = tstack.prepare(tm.config, tm.params, T, B)
+        assert ep["layout"].wf is not None
+        buf = sk["buf"].clone()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        before = (tstack.launches, tstack.wf_launches)
+        for _ in range(6):
+            x = torch.randn((1, T, B), generator=gen, device="cuda") * 0.3
+            n = sk["n"]
+            yk, sk = tstack.step(tm.config, T, ep, sk, x)
+            yp = tstack.step_plain_wf(ep["layout"], ep["weights"], buf, x, n)
+            torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+        assert (tstack.launches, tstack.wf_launches) == (before[0] + 6, before[1] + 6)
+
+
+@pytest.mark.cuda
+def test_wavefront_switched_between_blocks_on_the_card():
+    """A stream whose blocks alternate between the two kernels gives the
+    unpacked plain version's output and state."""
+    _cuda_or_skip()
+    tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("standard"), seed=2))
+    T, B = 64, 512
+    ep, sk = tstack.prepare(tm.config, tm.params, T, B)
+    buf = sk["buf"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    before = tstack.wf_launches
+    try:
+        for i in range(6):
+            tstack.WAVEFRONT = i % 2 == 0
+            x = torch.randn((1, T, B), generator=gen, device="cuda") * 0.3
+            n = sk["n"]
+            yk, sk = tstack.step(tm.config, T, ep, sk, x)
+            yp = tstack.step_plain(ep["layout"], ep["weights"], buf, x, n)
+            torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+    finally:
+        tstack.WAVEFRONT = False
+    assert tstack.wf_launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fast_tanh", "wavefront"])
+def test_flagship_fast_tanh_and_wavefront_main_paths(path):
+    """auto picks the fused tier with the mode or the flag on; the flagship's
+    prewarm and blocks launch the stack kernel (all of them the wavefront
+    kernel, with the flag on) and match the torch engine tier."""
+    _cuda_or_skip()
+    with agreement.modes(fast_tanh=path == "fast_tanh", wavefront=path == "wavefront"):
+        tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("standard"), seed=2))
+        eng = tnam.StreamEngine(tm, batch=256, block_size=64)
+        ref = tnam.StreamEngine(tm, batch=256, block_size=64, kernel="torch")
+        assert eng.kernel == "fused" and eng.prewarm_plan() == (64, 0)
+        before = (tstack.launches, tstack.wf_launches)
+        s, rs = eng.reset(), ref.reset()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        for _ in range(4):
+            x = torch.randn((256, 64), generator=gen, device="cuda") * 0.3
+            y, s = eng.process(x, s)
+            yr, rs = ref.process(x, rs)
+            torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
+        wf = 68 if path == "wavefront" else 0
+        assert (tstack.launches, tstack.wf_launches) == (before[0] + 68, before[1] + wf)

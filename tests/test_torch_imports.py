@@ -45,8 +45,9 @@ def test_scan_covers_the_package():
     assert {
         "__init__.py", "models/engine.py", "models/wavenet.py", "models/lstm.py", "models/convnet.py",
         "ops/cuda/_build.py", "ops/cuda/stack.py", "ops/cuda/lstm.py", "ops/cuda/convnet.py",
+        "cli/loadmodel.py", "cli/benchmodel.py",
     } <= names
-    for src in ("stack.cu", "lstm.cu", "convnet.cu", "activations.cuh"):
+    for src in ("stack.cu", "stack_wf.cu", "lstm.cu", "convnet.cu", "activations.cuh", "stack.cuh"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -74,8 +75,10 @@ def test_build_key_covers_source_headers_and_flags(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert lib.path() != second
     assert not (tmp_path / "build").exists()
-    # The port's three kernels each have their own library and source.
+    # The port's kernels each have their own library and source; the stack
+    # module has two (the unpacked and the wavefront kernel).
     assert [m.LIB.source.name for m in (stack, lstm, convnet)] == ["stack.cu", "lstm.cu", "convnet.cu"]
+    assert stack.WF_LIB.source.name == "stack_wf.cu"
 
 
 def test_load_model_without_device_raises_when_no_card(monkeypatch):

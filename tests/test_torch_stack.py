@@ -19,9 +19,9 @@ import neuralampmodelercore_tpu_torch as tnam
 from neuralampmodelercore_tpu.models.engine import StreamEngine as JEngine
 from neuralampmodelercore_tpu.ops.pallas import stack as jstack
 from neuralampmodelercore_tpu.tools.generate import make_nam, wavenet_preset, with_condition_dsp
-from neuralampmodelercore_tpu_torch.ops import activations as tact
 from neuralampmodelercore_tpu_torch.ops.cuda import backend_for
 from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+from test_torch_stack_modes import modes
 
 B = 128
 ATOL = 2e-5
@@ -216,21 +216,18 @@ def test_supports_refuses_what_is_not_k1a(name):
 
 @pytest.mark.parametrize("mode", ["fast_tanh", "lut"])
 def test_supports_refuses_fast_tanh_and_lut_modes(mode):
+    """supports admits both modes (K1f), the fused tier matches the JAX
+    Pallas kernel under the same mode, and a mode switched on after an
+    engine was built raises: the engine baked in the activations of the
+    modes it was built under."""
     tm = tnam.load_model(make_nam("WaveNet", wavenet_preset("simple"), seed=0), device="cpu")
-    assert tstack.supports(tm.config, 16, B) is None
     eng = tnam.StreamEngine(tm, batch=B, block_size=16, kernel="fused")
     state = eng.reset(prewarm=False)
-    if mode == "fast_tanh":
-        tact.enable_fast_tanh()
-    else:
-        tact.enable_lut("Tanh", -3.0, 3.0, 64)
-    try:
-        assert "K1f" in tstack.supports(tm.config, 16, B)
-        with pytest.raises(ValueError, match="fast-tanh / LUT"):
+    with modes(*((True, ()) if mode == "fast_tanh" else (False, (("Tanh", -3.0, 3.0, 64),)))):
+        assert tstack.supports(tm.config, 16, B) is None
+        _run(wavenet_preset("simple"), T=16, n_blocks=4, seed=0, tiers=("pallas",))
+        with pytest.raises(ValueError, match="modes changed since the fused engine was built"):
             eng.process(np.zeros((B, 16), np.float32), state)
-    finally:
-        tact.disable_fast_tanh()
-        tact.disable_lut("Tanh")
 
 
 def test_supports_block_size_and_backend():

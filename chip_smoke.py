@@ -3,21 +3,27 @@
 
     python3 chip_smoke.py [--out report.json]
 
-It drives the port's seven main paths, each through load_model(.nam) ->
+It drives the port's thirteen main paths, each through load_model(.nam) ->
 StreamEngine(kernel="auto") -> its hand-written CUDA kernel: the WaveNet
-flagship, the LSTM and the ConvNet; two WaveNets on the stack kernel's
+flagship, the LSTM (2 x 16 at B=2048 on lstm_wide.cu, and at B=32768 on
+lstm.cu, which serves it once the streams come in waves) and the ConvNet;
+two WaveNets on the stack kernel's
 features: flagship_cond (the flagship with a WaveNet condition DSP, two nets
 in one launch) and flagship_max (gating, blending, bottleneck, head1x1, FiLM
 at all 8 sites, the k=16 head conv and a post-stack head at the flagship's
 widths); flagship_fast_tanh (the flagship with the global fast-tanh mode on,
 K1f) and flagship_wavefront (the flagship on the wavefront-scheduled kernel,
-csrc/stack_wf.cu, K1g); and the benchmodel entry point with --engine
---fast-tanh. Phases (any failure raises and exits non-zero):
+csrc/stack_wf.cu, K1g); on the wide kernels (csrc/stack_wide.cu,
+lstm_wide.cu, convnet_wide.cu): large (the reference's LARGE WaveNet, 64
+then 32 channels, at full width), medium_gated (2 * 32 conv rows),
+flagship_T1024 (the flagship at T=1,024), lstm_48x2 and convnet_64; and the
+benchmodel entry point with --engine --fast-tanh. Phases (any failure raises
+and exits non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build every kernel from the checkout's sources (one nvcc per source,
-     stack.cu, stack_wf.cu, lstm.cu and convnet.cu all started together,
-     sm_90a) and print each build time and ptxas's register / spill report
-     per kernel instance;
+     stack.cu, stack_wf.cu, stack_wide.cu, lstm.cu, lstm_wide.cu, convnet.cu
+     and convnet_wide.cu all started together, sm_90a) and print each build
+     time and ptxas's register / spill report per kernel instance;
   3. each kernel against its plain PyTorch version on the card, same inputs
      from a seed, state carried, outputs and state to <= 2e-5 absolute:
      stack (the flagship at T=64 and T=16, offset-splice dilations, every
@@ -27,36 +33,52 @@ csrc/stack_wf.cu, K1g); and the benchmodel entry point with --engine
      head1x1_post_film, a k=16 head with bias at T=64 and T=16, a post-stack
      head, a depth-2 WaveNet condition chain, an LSTM condition pre-pass
      (K2 and the stack kernel must each launch once per block), per-channel
-     PReLU, flagship_max), lstm (1 x 3, 2 x 16 at T=64, T=34 and a ragged
-     B=1000, H=5 with two outputs, fast-tanh mode), convnet (the amp ConvNet
+     PReLU, flagship_max), lstm, each case on the kernel the wrapper picks
+     for its batch (1 x 3, 2 x 16 at T=64, T=34 and a ragged B=1000, H=5
+     with two outputs, fast-tanh mode; 2 x 16 at B=32768 at T=64, T=34 and
+     under fast-tanh), convnet (the amp ConvNet
      at T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
      groups=2, two in/out channels, a non-Tanh activation, dilations that
-     are not multiples of T); the modes (K1f): the flagship at T=64 under
-     fast-tanh, at T=16 under a Tanh LUT (-5, 5, 512 points), gated_bottleneck
+     are not multiples of T); the wide kernels, each run counted on the wide
+     kernel: stack_wide (rows 33, 48 gated and 64, rows 128, gated MEDIUM,
+     LARGE, a 40-channel net inside a fused condition chain, the flagship at
+     T=600 and T=1,024, 8 input channels with FiLM), lstm_wide (48 x 2,
+     64 x 1 and 8 x 5, each at T=64 with a ragged B and at T=34, the exact
+     prewarm's remainder; 8 inputs), convnet_wide (48, 64 and 128 channels,
+     per-channel PReLU, the amp ConvNet at T=1,024); the modes (K1f): the
+     flagship at T=64 under fast-tanh, at T=16 under a Tanh LUT (-5, 5, 512
+     points), gated_bottleneck
      under a Sigmoid LUT, depthwise (SiLU) under a SiLU LUT, the amp ConvNet
      under fast-tanh and under a Tanh LUT; the wavefront kernel (K1g) against
      step_plain_wf on the flagship at T=64, 16 and 20 (sub-tiles of 5 frames)
      and on offset-splice dilations at T=32, and a stream that switches
      WAVEFRONT on and off between blocks against the unpacked plain version;
-  4. each main path end to end at B=2048, T=64: load_model on the card,
-     StreamEngine with kernel="auto" (must pick "fused"), reset with prewarm,
-     32 blocks. Every launch counter is set to 0 just before the path and
-     read just after; the path's kernel must have run exactly prewarm + 32
-     times and no other kernel at all (the LSTM's prewarm is 344 full blocks
-     and one 34-sample remainder step; flagship_wavefront's 96 launches must
-     all be the wavefront kernel's), and the output must be finite and
+  4. each main path end to end at B=2048, T=64 (flagship_T1024: T=1,024;
+     lstm_2x16_B32768: B=32768):
+     load_model on the card, StreamEngine with kernel="auto" (must pick
+     "fused"), reset with prewarm, 32 blocks. Every launch counter is set to
+     0 just before the path and read just after; the path's kernel must have
+     run exactly prewarm + 32 times and no other kernel at all (the LSTM's
+     prewarm is 344 full blocks and one 34-sample remainder step;
+     flagship_wavefront's 96 launches must all be the wavefront kernel's,
+     large's 160 the wide kernel's), and the output must be finite and
      within 2e-5 of the torch engine tier on the card (under the same mode);
      then `python -m neuralampmodelercore_tpu_torch.cli.benchmodel` on the
      flagship .nam with --engine --fast-tanh --batch 2048, as a subprocess;
   5. per-block times with CUDA events after warm-up, printed beside the
      card's name and power limit: the kernel (twice), its plain version, the
      torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
-     the head product as the library yardstick; the same for the fast-tanh
+     the head product as the library yardstick (each line names the kernel
+     the wrapper picked: the register-tile or the wide one); the same for
+     the fast-tanh
      flagship, the flagship under a Tanh LUT (-5, 5, 512 points), the
      wavefront flagship (B = 1024, 2048, 4096; its plain version is
-     step_plain_wf) and the amp ConvNet under fast-tanh; then a doubling
-     sweep of the kernel for the real-time 48 kHz stream count of each model
-     and of the two flagship paths;
+     step_plain_wf), the amp ConvNet under fast-tanh and the five wide-kernel
+     paths (lstm_48x2 with cuDNN's call); then a doubling sweep of the kernel
+     for the real-time 48 kHz stream count of each model, of the flagship
+     paths and of the five wide-kernel paths (at T=1,024 for
+     flagship_T1024: its deadline is 21.3 ms); and both LSTM kernels on 2 x 16 at B=2048 and 32768, in
+     turns (the measurement behind the LSTM wrapper's choice);
   6. the agreement sweep (neuralampmodelercore_tpu_torch/tools/agreement.py):
      every kernel config against the torch engine tier, 8 blocks at B=256
      and 512, T=64, within 2e-5 (the mode configs with their mode set around
@@ -95,6 +117,17 @@ AMP_CONVNET = {  # tests/test_pallas_convnet.py:63-70 of the JAX package
 
 # The stack kernel's main paths (the flagship's is keyed by the kernel's name).
 STACK_PATHS = ("stack_step", "flagship_cond", "flagship_max", "flagship_fast_tanh", "flagship_wavefront")
+# The wide kernels' main paths: path -> (kernel, architecture, config key, sample rate, T, prewarm blocks,
+# remainder). Configs are filled in main() (they need the package).
+WIDE_PATHS = {
+    "large": ("stack_wide_step", "WaveNet", "large", 48000, 64, 128, 0),
+    "medium_gated": ("stack_wide_step", "WaveNet", "medium_gated", 48000, 64, 64, 0),
+    "flagship_T1024": ("stack_wide_step", "WaveNet", "flagship", 48000, 1024, 4, 0),
+    "lstm_48x2": ("lstm_wide_step", "LSTM", "lstm_48x2", 44100, 64, 344, 34),
+    "convnet_64": ("convnet_wide_step", "ConvNet", "convnet_64", 48000, 64, 16, 0),
+}
+LSTM_48X2 = {"input_size": 1, "hidden_size": 48, "num_layers": 2}
+CONVNET_64 = dict(AMP_CONVNET, channels=64)
 # Stack feature cases against the plain version: (config in tools/agreement.py, T, B, blocks).
 STACK_FEATURE_CASES = [(f"film_{site}", 16, 2048, 6) for site in (
     "conv_pre_film", "conv_post_film", "input_mixin_pre_film", "input_mixin_post_film",
@@ -114,7 +147,18 @@ REPLACES = {
                   "neuralampmodelercore_tpu/ops/pallas/lstm.py _make_kernel (K2)"),
     "convnet_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
                      "neuralampmodelercore_tpu/ops/pallas/convnet.py _make_kernel (K3)"),
+    "stack_wide_step": ("neuralampmodelercore_tpu/ops/pallas/stack.py:1769",
+                        "neuralampmodelercore_tpu/ops/pallas/stack.py _make_kernel beyond 32 rows, 4 input channels "
+                        "or 512 frames (G1, G2, G5)"),
+    "lstm_wide_step": ("neuralampmodelercore_tpu/ops/pallas/lstm.py:208",
+                       "neuralampmodelercore_tpu/ops/pallas/lstm.py _make_kernel beyond hidden 32, 4 layers or "
+                       "4 inputs (G3, G5)"),
+    "convnet_wide_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
+                          "neuralampmodelercore_tpu/ops/pallas/convnet.py _make_kernel beyond 32 channels or 512 "
+                          "frames, and per-channel PReLU (G2, G4, G6)"),
 }
+# The kernel each wrapper's wide counter counts.
+WIDE_OF = {"stack_step": "stack_wide_step", "lstm_step": "lstm_wide_step", "convnet_step": "convnet_wide_step"}
 
 
 def log(*a):
@@ -183,14 +227,16 @@ def _check_err(name, err_y, err_s):
     return max(err_y, err_s)
 
 
-def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None, wavefront=False):
+def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None, wavefront=False,
+                        wide=False):
     """Same model, same inputs, state carried: a kernel with a flat ring-state
     buffer (stack, convnet) vs its plain version. A stack model with an LSTM
     condition pre-pass takes the pre-pass through K2 on the kernel's side and
     through K2's plain version on the plain side; each kernel must launch once
     per block. With ``wavefront`` (and stack.WAVEFRONT on) every block must
     launch the wavefront kernel, held against step_plain_wf. Any global mode
-    is the caller's."""
+    is the caller's. With ``wide`` every block must launch the wrapper's wide
+    kernel, else none may."""
     model = nam.load_model(make_nam(arch, config, seed=seed), device="cuda")
     reason = mod.supports(model.config, T, B)
     if reason is not None:
@@ -199,6 +245,7 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
     layout = ep["layout"]
     step_plain = mod.step_plain_wf if wavefront else mod.step_plain
     wf_before = mod.wf_launches if wavefront else 0
+    wide_before = mod.wide_launches
     buf_plain = sk["buf"].clone()
     cstate = None
     if "condition" in sk:
@@ -230,6 +277,9 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
         raise RuntimeError(f"{name}: launches (kernel, K2) {launched}, expected {expect}")
     if wavefront and mod.wf_launches - wf_before != n_blocks:
         raise RuntimeError(f"{name}: {mod.wf_launches - wf_before} wavefront launches, expected {n_blocks}")
+    if mod.wide_launches - wide_before != (n_blocks if wide else 0):
+        raise RuntimeError(f"{name}: {mod.wide_launches - wide_before} wide-kernel launches, "
+                           f"expected {n_blocks if wide else 0}")
     prepass = f" launches stack {launched[0]}, lstm {launched[1]};" if cstate is not None else ""
     log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap}{prepass} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
@@ -268,7 +318,12 @@ def compare_wavefront_switch(nam, stack, make_nam, config, T, B, n_blocks, seed)
 
 
 def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, fast=False):
+    """The LSTM kernel the wrapper picks for (config, B) -- lstm.cu or
+    lstm_wide.cu, which must then run every block -- against its plain
+    version, state carried. Returns (the kernel's name, the error)."""
     model = nam.load_model(make_nam("LSTM", config, seed=seed), device="cuda")
+    wide = lstm._is_wide(model.config, B)
+    wide_before = lstm.wide_launches
     if fast:
         act.enable_fast_tanh()
     try:
@@ -290,9 +345,13 @@ def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, f
                 raise RuntimeError(f"{name}: non-finite kernel output at block {i}")
     finally:
         act.disable_fast_tanh()
-    log(f"compare lstm {name}: T={T} B={B} blocks={n_blocks} "
+    if lstm.wide_launches - wide_before != (n_blocks if wide else 0):
+        raise RuntimeError(f"{name}: {lstm.wide_launches - wide_before} wide-kernel launches, "
+                           f"expected {n_blocks if wide else 0}")
+    kernel = "lstm_wide_step" if wide else "lstm_step"
+    log(f"compare lstm {name} ({kernel}): T={T} B={B} blocks={n_blocks} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
-    return _check_err(name, err_y, err_s)
+    return kernel, _check_err(name, err_y, err_s)
 
 
 def time_per_block(fn, n_iter=20, n_warm=3):
@@ -317,15 +376,24 @@ def bound(work):
 
 
 def kernel_counts(modules):
-    """Launches per kernel: the stack module counts both of its kernels and,
-    apart, the wavefront kernel's."""
-    counts = {k: m.launches for k, m in modules.items()}
+    """Launches per kernel: each module counts all of its kernels and, apart,
+    its wide kernel's (the stack module its wavefront kernel's too)."""
+    counts = {}
+    for k, m in modules.items():
+        counts[WIDE_OF[k]] = m.wide_launches
+        counts[k] = m.launches - m.wide_launches
     counts["stack_wf_step"] = modules["stack_step"].wf_launches
     counts["stack_step"] -= counts["stack_wf_step"]
     return counts
 
 
-def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=None):
+def reset_counts(modules):
+    for m in modules.values():
+        m.launches = m.wide_launches = 0
+    modules["stack_step"].wf_launches = 0
+
+
+def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=None, T=T_MAIN, B=B_MAIN):
     """load_model -> StreamEngine(auto) -> reset with prewarm -> 32 blocks,
     with every launch counter set to 0 just before and read just after; then
     the torch engine tier on the same blocks. ``name`` is the kernel the
@@ -335,18 +403,16 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
     model = nam.load_model(doc)  # on the card by default
     if model.device.type != "cuda":
         raise RuntimeError(f"{label}: load_model put the model on {model.device}")
-    engine = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN)  # kernel="auto"
+    engine = nam.StreamEngine(model, batch=B, block_size=T)  # kernel="auto"
     log(f"main path {label}: StreamEngine(kernel='auto') chose {engine.kernel!r}")
     if engine.kernel != "fused":
         raise RuntimeError(f"{label}: auto chose {engine.kernel!r}, expected 'fused'")
     full, rem = engine.prewarm_plan()
     if (full, rem) != (expect_full, expect_rem):
         raise RuntimeError(f"{label}: prewarm plan {(full, rem)} != {(expect_full, expect_rem)}")
-    blocks = [randn((B_MAIN, T_MAIN), gen) for _ in range(N_BLOCKS)]  # mono, (B, T)
+    blocks = [randn((B, T), gen) for _ in range(N_BLOCKS)]  # mono, (B, T)
 
-    for m in modules.values():
-        m.launches = 0
-    modules["stack_step"].wf_launches = 0
+    reset_counts(modules)
     state = engine.reset()  # prewarm on
     ys = []
     for x in blocks:
@@ -362,12 +428,12 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
     if launched != expect or any(v for k, v in counts.items() if k != name):
         raise RuntimeError(f"{label}: launch counts {counts}, expected {expect} of {name} and no other")
     y_fused = torch.stack(ys)
-    if tuple(y_fused.shape) != (N_BLOCKS, B_MAIN, T_MAIN):
+    if tuple(y_fused.shape) != (N_BLOCKS, B, T):
         raise RuntimeError(f"{label}: main path output shape {tuple(y_fused.shape)}")
     if not torch.isfinite(y_fused).all():
         raise RuntimeError(f"{label}: non-finite main path output")
 
-    ref = nam.StreamEngine(model, batch=B_MAIN, block_size=T_MAIN, kernel="torch")
+    ref = nam.StreamEngine(model, batch=B, block_size=T, kernel="torch")
     rstate = ref.reset()
     yr = []
     for x in blocks:
@@ -378,7 +444,9 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
         f"max|fused - torch tier| = {err:.3e}")
     if not err <= ATOL:
         raise RuntimeError(f"{label}: main path disagrees with the torch engine tier: {err:.3e} > {ATOL}")
-    return model, {"B": B_MAIN, "T": T_MAIN, "blocks": N_BLOCKS, "prewarm": [full, rem],
+    del engine, ref, state, rstate
+    torch.cuda.empty_cache()
+    return model, {"B": B, "T": T, "blocks": N_BLOCKS, "prewarm": [full, rem],
                    "launches": launched, "max_abs_err_vs_torch_tier": err}
 
 
@@ -410,23 +478,26 @@ def cudnn_lstm(model, state_h, state_c):
     return run
 
 
-def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None, plain="step_plain"):
+def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None, plain="step_plain", T=T_MAIN):
     """Kernel (twice, in turns with the plain version), plain version, torch
     engine tier, bound and, where given, the library call, per batch size.
     A global mode or the wavefront flag is the caller's; ``plain`` names the
     plain version (step_plain_wf for the wavefront path)."""
     label = path or name
-    cfg, T = model.config, T_MAIN
+    cfg = model.config
     times = {}
     for Bt in batches:
         ep, st = mod.prepare(cfg, model.params, T, Bt)
+        lay = ep["layout"]
+        kernel = "wide" if (getattr(lay, "wide", None) or getattr(lay, "wide_group", 0)
+                            or getattr(lay, "wide_threads", 0)) else "register tile"
         x = randn((model.num_input_channels, T, Bt), gen)
         box = {"s": st}
 
         def run_kernel():
             _, box["s"] = mod.step(cfg, T, ep, box["s"], x)
 
-        if name == "lstm_step":
+        if name.startswith("lstm"):
             hp, cp = st["h"].clone(), st["c"].clone()
 
             def run_plain():
@@ -462,23 +533,44 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
         w = mod.work(cfg, T, Bt)
         b_ms, b_by = bound(w)
         times[Bt] = {
-            "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": t1, "library_ms": lib_ms,
+            "kernel": kernel, "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": t1, "library_ms": lib_ms,
             "library_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": w["bytes"], "flops": w["flops"],
         }
         lib_txt = f", library {lib_ms:.4f} ms (|lib - kernel| {lib_err:.2e})" if lib_ms is not None else ""
-        log(f"time {label} B={Bt} T={T}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+        log(f"time {label} B={Bt} T={T} ({kernel} kernel): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"torch tier {t1:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
-        del ep, st, box, teng, tbox
+        del ep, st, lay, box, teng, tbox
         torch.cuda.empty_cache()
     return times
 
 
-def realtime_sweep(mod, name, model, start, cap, gen, smi):
+def lstm_kernels_ab(lstm, model, gen, smi, batches=(2048, 32768)):
+    """Both LSTM kernels on the same model and input, in turns (lstm.cu,
+    lstm_wide.cu, lstm_wide.cu, lstm.cu) per batch: the measurement behind
+    lstm._is_wide's choice."""
+    cfg, T, out = model.config, T_MAIN, {}
+    for Bt in batches:
+        x = randn((cfg.in_channels, T, Bt), gen)
+        times = {}
+        for wide in (False, True, True, False):
+            ep, st = lstm.prepare(cfg, model.params, T, Bt, wide=wide)
+            times.setdefault("lstm_wide_step" if wide else "lstm_step", []).append(
+                time_per_block(lambda: lstm.step(cfg, T, ep, st, x)))
+            del ep, st
+        out[Bt] = {**times, "picked": "lstm_wide_step" if lstm._is_wide(cfg, Bt) else "lstm_step"}
+        log(f"lstm kernels B={Bt} T={T}: lstm.cu {times['lstm_step'][0]:.4f}/{times['lstm_step'][1]:.4f} ms, "
+            f"lstm_wide.cu {times['lstm_wide_step'][0]:.4f}/{times['lstm_wide_step'][1]:.4f} ms; "
+            f"the wrapper picks {out[Bt]['picked']}  [{smi}]")
+        torch.cuda.empty_cache()
+    return out
+
+
+def realtime_sweep(mod, name, model, start, cap, gen, smi, T=T_MAIN):
     """The largest batch (doubling from ``start``) whose kernel time per block
     stays under the T / 48 kHz deadline."""
-    deadline_ms = 1e3 * T_MAIN / SAMPLE_RATE
-    cfg, T = model.config, T_MAIN
+    deadline_ms = 1e3 * T / SAMPLE_RATE
+    cfg = model.config
     rt, Bt, sweep = 0, start, {}
     while Bt <= cap:
         ep, st = mod.prepare(cfg, model.params, T, Bt)
@@ -533,10 +625,11 @@ def main() -> int:
     from neuralampmodelercore_tpu_torch.ops import activations as act
     from neuralampmodelercore_tpu_torch.ops.cuda import convnet, lstm, stack
     from neuralampmodelercore_tpu_torch.tools import agreement
-    from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
+    from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset, with_condition_dsp
 
     modules = {"stack_step": stack, "lstm_step": lstm, "convnet_step": convnet}
-    libs = {"stack_step": stack.LIB, "stack_wf_step": stack.WF_LIB, "lstm_step": lstm.LIB, "convnet_step": convnet.LIB}
+    libs = {"stack_step": stack.LIB, "stack_wf_step": stack.WF_LIB, "lstm_step": lstm.LIB, "convnet_step": convnet.LIB,
+            "stack_wide_step": stack.WIDE_LIB, "lstm_wide_step": lstm.WIDE_LIB, "convnet_wide_step": convnet.WIDE_LIB}
     report = {}
     t_start = time.perf_counter()
     # -- 1. the card ------------------------------------------------------
@@ -558,13 +651,15 @@ def main() -> int:
     with ThreadPoolExecutor(len(libs)) as ex:
         built = dict(zip(libs, ex.map(build, libs.values())))
     report["build_s"] = {"wall": time.perf_counter() - t0}
+    report["ptxas"] = {}
     for name, lib in libs.items():
         so, secs = built[name]
         report["build_s"][name] = secs
         log(f"build: {lib.source.name} -> {so.name} in {secs:.1f} s")
-        for line in lib.build_log.splitlines():
-            if any(k in line for k in ("Compiling entry", "registers", "spill", "error")):
-                log(f"  ptxas {lib.source.name}: {line.strip()}")
+        report["ptxas"][name] = [line.strip() for line in lib.build_log.splitlines()
+                                 if any(k in line for k in ("Compiling entry", "registers", "spill", "error"))]
+        for line in report["ptxas"][name]:
+            log(f"  ptxas {lib.source.name}: {line}")
     log(f"build: all {len(libs)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
 
     # -- 3. kernel vs plain -----------------------------------------------
@@ -601,6 +696,10 @@ def main() -> int:
         ("2x5_out2_T64_B1000", "2 x 5, 2 outputs",
          {"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 64, 1000, 6, False),
         ("2x16_fast_tanh_T64_B2048", "2 x 16 fast-tanh", LSTM_MAIN, 64, 2048, 6, True),
+        # Where lstm.cu serves 2 x 16: the streams come in waves.
+        ("2x16_T64_B32768", "2 x 16 B=32768", LSTM_MAIN, 64, 32768, 4, False),
+        ("2x16_T34_B32768", "2 x 16 T=34 B=32768", LSTM_MAIN, 34, 32768, 4, False),
+        ("2x16_fast_tanh_T64_B32768", "2 x 16 fast-tanh B=32768", LSTM_MAIN, 64, 32768, 4, True),
     ]
     # The modes inside the stack kernel and K3 (K1f): (kernel, key, name, config, T, B, blocks, fast-tanh, LUTs).
     mode_cases = [
@@ -623,10 +722,65 @@ def main() -> int:
         ("flagship_T20_B2048", "flagship T=20 (sub-tiles of 5)", wavenet_preset("standard"), 20, 2048, 12),
         ("splice_T32_B2048", "offset splice T=32", splice_config(), 32, 2048, 10),
     ]
+    # The wide kernels (csrc/*_wide.cu), each case counted on the wide kernel:
+    # (kernel, key, name, config, T, B, blocks).
+    wide_layer = agreement.small_layer
+    wide_ring_cases = [
+        ("stack_wide_step", "rows33_T64_B1000", "rows 33",
+         {"layers": [wide_layer(channels=33, head_size=1, dilations=[1, 4, 128])], "head": None}, 64, 1000, 6),
+        ("stack_wide_step", "rows48_gated_T16_B2048", "rows 48 (gated, bottleneck 24, head1x1)",
+         {"layers": [wide_layer(channels=32, bottleneck=24, gated=True, dilations=[1, 8, 100],
+                                head1x1={"active": True, "out_channels": 6, "groups": 1})], "head": None}, 16, 2048, 6),
+        ("stack_wide_step", "rows64_T64_B2048", "rows 64",
+         {"layers": [wide_layer(channels=64, head_size=1, dilations=agreement.DILATIONS + [1024])], "head": None},
+         64, 2048, 6),
+        ("stack_wide_step", "rows128_T64_B512", "rows 128",
+         {"layers": [wide_layer(channels=128, head_size=1, dilations=[1, 2, 4, 64, 512])], "head": None}, 64, 512, 4),
+        ("stack_wide_step", "medium_gated_T64_B2048", "gated MEDIUM (2 x 32 rows)", features["medium_gated"][1],
+         64, 2048, 4),
+        ("stack_wide_step", "large_T64_B2048", "LARGE", features["large"][1], 64, 2048, 4),
+        ("stack_wide_step", "wide_condition_chain_T16_B2048", "40-channel net in a fused condition chain",
+         with_condition_dsp({"layers": [wide_layer(channels=8, head_size=1)], "head": None},
+                            make_nam("WaveNet", {"layers": [wide_layer(channels=40, head_size=1)], "head": None},
+                                     seed=3)), 16, 2048, 6),
+        ("stack_wide_step", "flagship_T600_B1000", "flagship T=600", wavenet_preset("standard"), 600, 1000, 3),
+        ("stack_wide_step", "flagship_T1024_B2048", "flagship T=1024", wavenet_preset("standard"), 1024, 2048, 3),
+        ("stack_wide_step", "in8_film_T64_B2048", "8 input channels, FiLM",
+         {"in_channels": 8, "layers": [wide_layer(input_size=8, condition_size=8, channels=8, head_size=1,
+                                                  conv_post_film=agreement.film(),
+                                                  input_mixin_pre_film=agreement.film())], "head": None},
+         64, 2048, 6),
+        ("convnet_wide_step", "c48_T64_B2048", "48 channels", dict(AMP_CONVNET, channels=48), 64, 2048, 6),
+        ("convnet_wide_step", "c64_T64_B1000", "64 channels", CONVNET_64, 64, 1000, 6),
+        ("convnet_wide_step", "c128_T64_B512", "128 channels", dict(AMP_CONVNET, channels=128), 64, 512, 4),
+        ("convnet_wide_step", "prelu_per_channel_T64_B2048", "per-channel PReLU",
+         {"channels": 16, "dilations": [1, 2, 4, 8, 128], "batchnorm": True,
+          "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2, 0.3, 0.4]}}, 64, 2048, 6),
+        ("convnet_wide_step", "amp_T1024_B2048", "amp T=1024", AMP_CONVNET, 1024, 2048, 4),
+    ]
+    wide_lstm_cases = [  # (key, name, config, T, B, blocks)
+        ("48x2_T64_B1000", "48 x 2 ragged", LSTM_48X2, 64, 1000, 4),
+        ("48x2_T34_B2048", "48 x 2 T=34", LSTM_48X2, 34, 2048, 4),
+        ("64x1_T64_B1000", "64 x 1 ragged", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 64, 1000, 4),
+        ("64x1_T34_B2048", "64 x 1 T=34", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 34, 2048, 4),
+        ("8x5_T64_B1000", "8 x 5 ragged", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 64, 1000, 4),
+        ("8x5_T34_B2048", "8 x 5 T=34", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 34, 2048, 4),
+        ("in8_12x2_T64_B777", "8 inputs x 12 x 2",
+         {"input_size": 8, "in_channels": 8, "hidden_size": 12, "num_layers": 2}, 64, 777, 4),
+    ]
     errs = {name: {} for name in libs}
     for kname, (arch, mod, cases) in ring_cases.items():
         for i, (key, name, config, T, B, n) in enumerate(cases):
             errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n, SEED + i, lstm)
+    for i, (kname, key, name, config, T, B, n) in enumerate(wide_ring_cases):
+        arch, mod = ("ConvNet", convnet) if kname == "convnet_wide_step" else ("WaveNet", stack)
+        errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, f"wide {name}", config, T, B, n, SEED + i,
+                                               wide=True)
+    for i, (key, name, config, T, B, n) in enumerate(wide_lstm_cases):
+        kname, errs_key = compare_lstm(nam, lstm, act, make_nam, f"wide {name}", config, T, B, n, SEED + i)
+        if kname != "lstm_wide_step":
+            raise RuntimeError(f"wide {name}: ran {kname}, not the wide kernel")
+        errs[kname][key] = errs_key
     for i, (kname, key, name, config, T, B, n, fast, luts) in enumerate(mode_cases):
         arch, mod = ring_cases[kname][:2]
         with agreement.modes(fast, luts):
@@ -638,7 +792,8 @@ def main() -> int:
     errs["stack_wf_step"]["switch_T64_B2048"] = compare_wavefront_switch(
         nam, stack, make_nam, wavenet_preset("standard"), 64, 2048, 8, SEED)
     for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
-        errs["lstm_step"][key] = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
+        kname, err = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
+        errs[kname][key] = err
     report["max_abs_err"] = errs
 
     # -- 4. the main paths ----------------------------------------------------
@@ -647,8 +802,13 @@ def main() -> int:
     main_models["stack_step"], main["stack_step"] = run_main_path(
         nam, modules, "stack_step", make_nam("WaveNet", wavenet_preset("standard"), seed=SEED), 64, 0, gen)
     # 0.5 s at 44.1 kHz = 22,050 samples = 344 blocks of 64 and a 34-sample remainder.
-    main_models["lstm_step"], main["lstm_step"] = run_main_path(
-        nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen)
+    # The LSTM at B=2048 runs lstm_wide.cu; lstm.cu serves it from B=32768 on.
+    main_models["lstm_2x16"], main["lstm_2x16"] = run_main_path(
+        nam, modules, "lstm_wide_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
+        "lstm_2x16")
+    main_models["lstm_2x16_B32768"], main["lstm_2x16_B32768"] = run_main_path(
+        nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
+        "lstm_2x16_B32768", B=32768)
     main_models["convnet_step"], main["convnet_step"] = run_main_path(
         nam, modules, "convnet_step", make_nam("ConvNet", AMP_CONVNET, seed=SEED), 16, 0, gen)
     # The stack kernel's feature paths: prewarm 5,115 and 4,113 samples.
@@ -660,6 +820,13 @@ def main() -> int:
         with agreement.mode(path):
             main_models[path], main[path] = run_main_path(
                 nam, modules, kernel, make_nam("WaveNet", wavenet_preset("standard"), seed=SEED), 64, 0, gen, path)
+    # The wide kernels' paths: the LARGE WaveNet at full width first.
+    wide_configs = {"large": features["large"][1], "medium_gated": features["medium_gated"][1],
+                    "flagship": wavenet_preset("standard"), "lstm_48x2": LSTM_48X2, "convnet_64": CONVNET_64}
+    for path, (kernel, arch, key, rate, T, full, rem) in WIDE_PATHS.items():
+        main_models[path], main[path] = run_main_path(
+            nam, modules, kernel, make_nam(arch, wide_configs[key], seed=SEED, sample_rate=rate), full, rem, gen,
+            path, T=T)
     report["main_path"] = main
     torch.cuda.empty_cache()
     report["benchmodel"] = run_benchmodel(make_nam("WaveNet", wavenet_preset("standard"), seed=SEED))
@@ -667,8 +834,8 @@ def main() -> int:
     # -- 5. timing ------------------------------------------------------------
     report["times"] = {
         "stack_step": time_model(nam, stack, "stack_step", main_models["stack_step"], (1024, 2048, 4096), gen, smi),
-        "lstm_step": time_model(nam, lstm, "lstm_step", main_models["lstm_step"], (2048, 8192, 32768), gen, smi,
-                                library=cudnn_lstm),
+        "lstm_2x16": time_model(nam, lstm, "lstm_step", main_models["lstm_2x16"], (2048, 8192, 32768), gen, smi,
+                                library=cudnn_lstm, path="lstm_2x16"),
         "convnet_step": time_model(nam, convnet, "convnet_step", main_models["convnet_step"], (2048, 8192, 32768),
                                    gen, smi),
         **{path: time_model(nam, stack, "stack_step", main_models[path], (2048,), gen, smi, path=path)
@@ -686,14 +853,29 @@ def main() -> int:
         report["times"]["flagship_wavefront"] = time_model(
             nam, stack, "stack_wf_step", main_models["flagship_wavefront"], (1024, 2048, 4096), gen, smi,
             path="flagship_wavefront", plain="step_plain_wf")
+    report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], gen, smi)
+    # lstm.cu's own path: the 2 x 16 timing at B=32768, where it serves.
+    report["times"]["lstm_2x16_B32768"] = {32768: report["times"]["lstm_2x16"][32768]}
+    for path, (kernel, arch, key, rate, T, full, rem) in WIDE_PATHS.items():
+        mod = modules[kernel.replace("_wide", "")]
+        report["times"][path] = time_model(nam, mod, kernel, main_models[path], (B_MAIN,), gen, smi, path=path, T=T,
+                                           library=cudnn_lstm if arch == "LSTM" else None)
     report["realtime_streams"], report["sweep_ms"] = {}, {}
-    for path, mod, start, cap in (("stack_step", stack, 4096, 65536), ("lstm_step", lstm, 8192, 1 << 20),
+    for path, mod, start, cap in (("stack_step", stack, 4096, 65536), ("lstm_2x16", lstm, 8192, 1 << 20),
                                   ("convnet_step", convnet, 8192, 1 << 18), ("flagship_cond", stack, 1024, 65536),
                                   ("flagship_max", stack, 1024, 65536), ("flagship_fast_tanh", stack, 2048, 65536),
                                   ("flagship_wavefront", stack, 2048, 65536)):
         with agreement.mode(path):
             report["realtime_streams"][path], report["sweep_ms"][path] = realtime_sweep(
                 mod, path, main_models[path], start, cap, gen, smi)
+    # Capped where a larger batch's state would not fit the card's memory
+    # (2.1 MB of state a stream for LARGE at T=64 and for the flagship at
+    # T=1,024, 0.6 MB for medium_gated and convnet_64).
+    for path, start, cap in (("large", 64, 8192), ("medium_gated", 256, 32768), ("flagship_T1024", 1024, 16384),
+                             ("lstm_48x2", 1024, 1 << 20), ("convnet_64", 256, 16384)):
+        mod = modules[WIDE_PATHS[path][0].replace("_wide", "")]
+        report["realtime_streams"][path], report["sweep_ms"][path] = realtime_sweep(
+            mod, path, main_models[path], start, cap, gen, smi, T=WIDE_PATHS[path][4])
 
     # -- 6. agreement sweep: every kernel config against the torch tier -------
     agree_dir = os.path.join(os.path.dirname(args.out) or ".", "agreement") if args.out else "build/agreement"
@@ -706,28 +888,38 @@ def main() -> int:
 
     # -- 7. result lines ------------------------------------------------------
     def numbers(path):
-        t = report["times"][path][B_MAIN]
+        t = report["times"][path][main[path]["B"]]
         return {"launches": main[path]["launches"], "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
 
+    # A kernel's numbers are those of its own main path: the wavefront kernel's
+    # the flagship on it, each wide kernel's its first path in WIDE_PATHS.
+    # lstm.cu serves the LSTM from B=32768 on, lstm_wide.cu at B=2048.
+    own_path = {"stack_wf_step": "flagship_wavefront", "lstm_step": "lstm_2x16_B32768", "lstm_wide_step": "lstm_2x16"}
+    for path, (kernel, *_) in WIDE_PATHS.items():
+        own_path.setdefault(kernel, path)
     kernels = []
     for name, lib in libs.items():
         replaces, counterpart = REPLACES[name]
+        path = own_path.get(name, name)
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"neuralampmodelercore_tpu_torch/csrc/{lib.source.name}",
             "replaces": replaces,
             "tpu_counterpart": counterpart,
-            # The wavefront kernel's numbers are those of its main path, the flagship on it.
-            **numbers("flagship_wavefront" if name == "stack_wf_step" else name),
+            **numbers(path),
             "max_abs_err": max(errs[name].values()),
-            "shape": {"B": B_MAIN, "T": T_MAIN},
+            "shape": {"B": main[path]["B"], "T": main[path]["T"]},
         }
         entry["kernel_ms"] = entry["ms"]
         if name == "stack_step":
             # The entry's numbers are the flagship path's; each path's own under "paths".
             entry["paths"] = {path: numbers(path) for path in STACK_PATHS}
+        elif name == "stack_wide_step":
+            entry["paths"] = {path: numbers(path) for path, (k, *_) in WIDE_PATHS.items() if k == name}
+        elif name == "lstm_wide_step":
+            entry["paths"] = {path: numbers(path) for path in ("lstm_2x16", "lstm_48x2")}
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

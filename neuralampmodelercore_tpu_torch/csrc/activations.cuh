@@ -1,9 +1,10 @@
 // Activation device code shared by the port's kernels (stack.cu,
-// stack_wf.cu, convnet.cu, lstm.cu). float32 throughout: tanhf and expf, no
+// stack_wf.cu, stack_wide.cu, convnet.cu, convnet_wide.cu, lstm.cu,
+// lstm_wide.cu). float32 throughout: tanhf and expf, no
 // fast-math intrinsics.
 //
 // The codes and parameters are those ops/activations.py `kernel_code` gives
-// (KERNEL_CODES, LUT_CODES; code 11 is stack.cu's per-channel PReLU); the
+// (KERNEL_CODES, LUT_CODES; code 11 is the per-channel PReLU of `activate`); the
 // formulas match ops/activations.py (reference: NAM/activations.h). The
 // global fast-tanh and LUT modes are resolved on the host: fast-tanh turns
 // Tanh into ACT_FASTTANH, a LUT turns Tanh, Sigmoid or SiLU into its
@@ -27,6 +28,7 @@ enum Act {
   ACT_HARDSWISH = 8,
   ACT_FASTTANH = 9,
   ACT_LEAKY_HARDTANH = 10,
+  ACT_PRELU_CHANNELS = 11,  // a slope per channel (ops/cuda/stack.py ACT_PRELU_CHANNELS)
   ACT_LUT_TANH = 12,
   ACT_LUT_SIGMOID = 13,
   ACT_LUT_SILU = 14,
@@ -149,6 +151,18 @@ __device__ __forceinline__ void apply_act(float* z, int code, const float* prm) 
       break;
     default:  // ACT_IDENTITY
       break;
+  }
+}
+
+// An activation of apply_act, or PReLU with a slope per channel: prm[o] is
+// row o's (ACT_PRELU_CHANNELS, stack.cu and the wide kernels).
+template <int N>
+__device__ __forceinline__ void activate(float* z, int code, const float* prm) {
+  if (code == ACT_PRELU_CHANNELS) {
+#pragma unroll
+    for (int o = 0; o < N; ++o) z[o] = z[o] > 0.f ? z[o] : prm[o] * z[o];
+  } else {
+    apply_act<N>(z, code, prm);
   }
 }
 

@@ -1,6 +1,7 @@
 // Device code shared by the fused WaveNet stack kernels: csrc/stack.cu (the
 // unpacked layer loop, K1a-K1f) and csrc/stack_wf.cu (shallow-layer runs in
-// wavefront micro-steps, K1g). What a step computes, the state layout and the
+// wavefront micro-steps, K1g); csrc/stack_wide.cu takes the plan layout, the
+// tile and the tap source. What a step computes, the state layout and the
 // design are described in stack.cu's header; this file holds the plan
 // layout, the per-thread tile, the tap source, FiLM, the 1x1 products, the
 // tail convs, the parts of a layer both kernels run, and the kernel body
@@ -11,7 +12,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "activations.cuh"  // Act codes, apply_act, stage
+#include "activations.cuh"  // Act codes, activate, stage
 
 namespace {
 
@@ -36,18 +37,6 @@ enum Film { CONV_PRE = 0, CONV_POST, MIXIN_PRE, MIXIN_POST, ACT_PRE, ACT_POST, L
 constexpr int GATED = 1, BLENDED = 2;
 
 constexpr int SMAX = 4;  // largest condition / input channel count
-constexpr int ACT_PRELU_CHANNELS = 11;  // PReLU, one slope per channel in prm[o] (stack.py)
-
-// An activation of activations.cuh, or PReLU with a slope per channel.
-template <int N>
-__device__ __forceinline__ void activate(float* z, int code, const float* prm) {
-  if (code == ACT_PRELU_CHANNELS) {
-#pragma unroll
-    for (int o = 0; o < N; ++o) z[o] = z[o] > 0.f ? z[o] : prm[o] * z[o];
-  } else {
-    apply_act<N>(z, code, prm);
-  }
-}
 
 struct Tile {
   int t, bl, b, BS, T, B, n, own;  // own: this thread's column of a (rows, T, BS) shared buffer

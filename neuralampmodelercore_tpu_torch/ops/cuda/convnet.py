@@ -19,9 +19,18 @@ integer that wraps at the LCM of the ring sizes. A dilation need not be a
 multiple of T: each tap's slot and frame are computed per element. ``step``
 writes the rings in place: the state passed in is consumed.
 
+What ``csrc/convnet.cu``'s register tile cannot hold -- more than 32
+channels, blocks of more than 512 frames, PReLU with a slope per channel --
+runs on ``csrc/convnet_wide.cu`` (the wide kernel): the same step on the
+same plan, weights padded to WIDE_RW-row slices, and the same state, with
+the layer input and output of every frame in shared memory; up to
+WIDE_MAX_CHANNELS channels and WIDE_MAX_T frames. ``supports`` picks it
+only when the register-tile kernel refuses the model.
+
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain``, the same step on the same state layout in plain torch.
-``launches`` counts kernel launches and nothing else.
+``launches`` counts launches of both kernels (``wide_launches`` those of the
+wide kernel) and nothing else.
 """
 
 from __future__ import annotations
@@ -36,12 +45,16 @@ import torch
 
 from .. import activations as act
 from . import _build
-from .stack import MAX_T, SMEM_LIMIT, _dense_conv, _np, _pad4, _streams_per_cta
+from .stack import (MAX_T, SMEM_LIMIT, WIDE_MAX_T, WIDE_RW, WIDE_THREADS, _act_code_prm, _act_plain, _dense_conv,
+                    _np, _pad4, _streams_per_cta, wide_fit)
 
-#: Kernel launches so far; ``step_plain`` does not count.
+#: Kernel launches so far (both kernels); ``step_plain`` does not count.
 launches = 0
+#: Of those, launches of the wide kernel (csrc/convnet_wide.cu).
+wide_launches = 0
 
 MAX_CHANNELS = 32
+WIDE_MAX_CHANNELS = 128
 
 # Plan layout, as the constants in convnet.cu.
 P_HEADER, LF = 10, 8
@@ -62,24 +75,56 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
         return f"not a ConvNetConfig: {type(cfg).__name__}"
     if batch < 1:
         return f"batch {batch} < 1"
-    if not 1 <= T <= MAX_T:
-        return f"block size T={T} outside 1..{MAX_T} (one thread per frame and stream)"
+    if not 1 <= T <= WIDE_MAX_T:
+        return f"block size T={T} outside 1..{WIDE_MAX_T}"
     if not cfg.dilations:
         return "no conv blocks"
-    if max(cfg.in_channels, cfg.channels, cfg.out_channels) > MAX_CHANNELS:
-        return f"more than {MAX_CHANNELS} channels"
+    if max(cfg.in_channels, cfg.channels, cfg.out_channels) > WIDE_MAX_CHANNELS:
+        return f"more than {WIDE_MAX_CHANNELS} channels"
     a = cfg.activation
     if a.type not in act.KERNEL_CODES:
         return f"activation {a.type} not in the kernel"
-    if a.type == "PReLU" and len(act.prelu_slopes(a)) > 1:
-        return "per-channel PReLU not in the kernel"
-    if _smem_bytes(cfg, T) > SMEM_LIMIT:
-        return f"shared memory {_smem_bytes(cfg, T)} B > {SMEM_LIMIT} B at T={T}"
+    if a.type == "PReLU" and cfg.channels % len(act.prelu_slopes(a)):
+        return f"PReLU with {len(act.prelu_slopes(a))} slopes on {cfg.channels} channels"
+    if _is_wide(cfg, T) and not _wide_launch(cfg, T)[0]:
+        return f"shared memory {_wide_smem_bytes(cfg, T, 1)} B > {SMEM_LIMIT} B at T={T} (wide kernel)"
     return None
 
 
-def _c_max(cfg) -> int:
-    return _pad4(max(cfg.in_channels, cfg.channels))
+def _is_wide(cfg, T: int) -> bool:
+    """Whether the model needs the wide kernel (csrc/convnet_wide.cu): the
+    register-tile kernel (csrc/convnet.cu) runs at most MAX_T frames and
+    MAX_CHANNELS channels in its shared memory, and one PReLU slope."""
+    a = cfg.activation
+    return (T > MAX_T or max(cfg.in_channels, cfg.channels, cfg.out_channels) > MAX_CHANNELS
+            or (a.type == "PReLU" and len(act.prelu_slopes(a)) > 1) or _smem_bytes(cfg, T) > SMEM_LIMIT)
+
+
+def _c_max(cfg, wide: bool = False) -> int:
+    """Padded rows of the packed weights: 4, 8, 16 or 32 for the register
+    tile, a multiple of WIDE_RW for the wide kernel."""
+    rows = max(cfg.in_channels, cfg.channels)
+    return -(-rows // WIDE_RW) * WIDE_RW if wide else _pad4(rows)
+
+
+def _wide_seg_max(cfg) -> int:
+    """Floats of the largest layer segment in the wide kernel's layout."""
+    from ...models.convnet import block_spec
+
+    CP = _c_max(cfg, wide=True)
+    return max(_seg_len(2, block_spec(cfg, i).in_channels, CP) for i in range(len(cfg.dilations)))
+
+
+def _wide_smem_bytes(cfg, T: int, BS: int, staged: bool = False) -> int:
+    """The wide kernel's two (rows, T, BS) buffers, the layer input and
+    output, and with ``staged`` a layer's weight segment."""
+    return 4 * (2 * _c_max(cfg, wide=True) * T * BS + (_wide_seg_max(cfg) if staged else 0))
+
+
+def _wide_launch(cfg, T: int) -> Tuple[int, bool]:
+    """(streams per CTA, weights staged in shared memory) of the wide kernel
+    (``stack.wide_fit``)."""
+    return wide_fit(T, _c_max(cfg, wide=True), lambda BS, staged: _wide_smem_bytes(cfg, T, BS, staged))
 
 
 def _seg_len(K: int, cin: int, CP: int) -> int:
@@ -87,6 +132,8 @@ def _seg_len(K: int, cin: int, CP: int) -> int:
 
 
 def _smem_bytes(cfg, T: int) -> int:
+    """The register-tile kernel's (at most MAX_CHANNELS channels): two weight
+    segments and the double-buffered (CP, T, streams) layer input."""
     from ...models.convnet import block_spec
 
     CP = _c_max(cfg)
@@ -118,7 +165,7 @@ class Layout:
     Cin: int
     C: int
     Cout: int
-    c_max: int  # register tile of the kernel instance (4/8/16/32)
+    c_max: int  # padded rows of the weights: the register tile (4/8/16/32), or a multiple of WIDE_RW
     head_w: int  # (Cout, C)
     head_b: int
     act_code: int  # as activations.kernel_code resolves the activation under ``modes``
@@ -129,6 +176,8 @@ class Layout:
     smem_bytes: int
     modes: Tuple  # activations.modes() at prepare
     layers: Tuple[LayerLayout, ...]
+    wide_threads: int = 0  # threads of the wide kernel; 0: csrc/convnet.cu runs the model
+    wide_seg_max: int = 0  # floats of the wide kernel's staged weight segment; 0: read from device memory
 
 
 def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
@@ -149,7 +198,8 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
         size += a.size + pad
         return off
 
-    CP = _c_max(cfg)
+    wide = _is_wide(cfg, T)
+    CP = _c_max(cfg, wide)
     C = cfg.channels
     layers: List[LayerLayout] = []
     state_size, wrap = 0, 1
@@ -173,12 +223,17 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
             wrap = wrap * M // math.gcd(wrap, M)
     head_w = put(_np(params["head_w"]).T)  # (Cout, C)
     head_b = put(_np(params["head_b"]))
-    code, prm = act.kernel_code(cfg.activation)
+    code, prm = _act_code_prm(cfg.activation, C, max(CP, act.KERNEL_PARAMS))
+    BS, staged = _wide_launch(cfg, T) if wide else (_streams_per_cta(T), False)
+    seg_max = max(lp.seg_len for lp in layers)
     layout = Layout(
-        T=T, B=batch, BS=_streams_per_cta(T), Cin=cfg.in_channels, C=C, Cout=cfg.out_channels, c_max=CP,
-        head_w=head_w, head_b=head_b, act_code=code, act_prm=put(prm), seg_max=max(lp.seg_len for lp in layers),
-        state_size=state_size, wrap=wrap, smem_bytes=_smem_bytes(cfg, T), modes=act.modes(),
-        layers=tuple(layers),
+        T=T, B=batch, BS=BS, Cin=cfg.in_channels, C=C, Cout=cfg.out_channels, c_max=CP,
+        head_w=head_w, head_b=head_b, act_code=code, act_prm=put(prm), seg_max=seg_max,
+        state_size=state_size, wrap=wrap,
+        smem_bytes=_wide_smem_bytes(cfg, T, BS, staged) if wide else _smem_bytes(cfg, T),
+        modes=act.modes(), layers=tuple(layers),
+        wide_threads=min(WIDE_THREADS, -(-T * BS * (CP // WIDE_RW) // 32) * 32) if wide else 0,
+        wide_seg_max=seg_max if staged else 0,
     )
     return layout, np.concatenate(chunks)
 
@@ -226,7 +281,7 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
     """One block through every layer, reading the weights back out of the
     packed buffer and writing the rings in place. x (Cin, T, B) -> (Cout, T, B)."""
     T, B, C, CP = layout.T, layout.B, layout.C, layout.c_max
-    prm = weights[layout.act_prm : layout.act_prm + act.KERNEL_PARAMS]
+    prm = weights[layout.act_prm : layout.act_prm + max(CP, act.KERNEL_PARAMS)]
     h = x
     for lp, ring in zip(layout.layers, rings(layout, buf)):
         K, d, cin = lp.K, lp.d, lp.cin
@@ -240,7 +295,7 @@ def step_plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torc
         z = torch.matmul(conv_w, torch.cat(wins, dim=0).reshape(K * cin, T * B)).view(C, T, B)
         z = z * mul[:, None, None] + add[:, None, None]
         ring[n % lp.M].copy_(h)
-        h = act.kernel_apply(layout.act_code, prm, z)
+        h = _act_plain(layout.act_code, prm, z)
     head_w = weights[layout.head_w : layout.head_w + layout.Cout * C].view(layout.Cout, C)
     head_b = weights[layout.head_b : layout.head_b + layout.Cout]
     return torch.matmul(head_w, h.reshape(C, T * B)).view(layout.Cout, T, B) + head_b[:, None, None]
@@ -256,14 +311,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.nam_convnet_step.restype = ctypes.c_int
 
 
+def _bind_wide(lib: ctypes.CDLL) -> None:
+    lib.nam_convnet_wide_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.nam_convnet_wide_step.restype = ctypes.c_int
+
+
 #: csrc/convnet.cu, built by nvcc at first launch (``LIB.build_log``: ptxas's report).
 LIB = _build.Library("convnet.cu", _bind)
+#: csrc/convnet_wide.cu, the wide kernel: its own source, so it builds beside convnet.cu.
+WIDE_LIB = _build.Library("convnet_wide.cu", _bind_wide)
 
 
 def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch.Tensor,
            x: torch.Tensor, n: int) -> torch.Tensor:
-    """Launch the kernel on the current stream: x (Cin, T, B) -> y (Cout, T, B)."""
-    global launches
+    """Launch the kernel the layout names (csrc/convnet.cu, or csrc/convnet_wide.cu
+    for a wide layout) on the current stream: x (Cin, T, B) -> y (Cout, T, B)."""
+    global launches, wide_launches
     T, B = layout.T, layout.B
     for name, t in (("x", x), ("weights", weights), ("state", buf)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -274,14 +337,18 @@ def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch
         raise ValueError("plan must be an int64 tensor on x's device")
     if tuple(x.shape) != (layout.Cin, T, B):
         raise ValueError(f"x shape {tuple(x.shape)} != {(layout.Cin, T, B)}")
-    lib = LIB.load()
     y = torch.empty((layout.Cout, T, B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nam_convnet_step(
-        x.data_ptr(), y.data_ptr(), buf.data_ptr(), weights.data_ptr(), plan.data_ptr(),
-        T, B, n, layout.BS, layout.c_max, layout.smem_bytes, stream,
-    )
-    LIB.check(err, "convnet kernel")
+    args = (x.data_ptr(), y.data_ptr(), buf.data_ptr(), weights.data_ptr(), plan.data_ptr(), T, B, n, layout.BS)
+    if layout.wide_threads:
+        lib = WIDE_LIB.load()
+        err = lib.nam_convnet_wide_step(*args, layout.c_max, layout.c_max, layout.wide_seg_max, layout.wide_threads,
+                                        layout.smem_bytes, stream)
+        WIDE_LIB.check(err, "convnet wide kernel")
+        wide_launches += 1
+    else:
+        lib = LIB.load()
+        LIB.check(lib.nam_convnet_step(*args, layout.c_max, layout.smem_bytes, stream), "convnet kernel")
     launches += 1
     return y
 

@@ -17,9 +17,22 @@ the packed weights depend on T, so ``step`` takes any block length T' >= 1:
 the engine's exact prewarm runs its remainder through the same kernel.
 Global fast-tanh mode is read at each launch and passed as a flag.
 
+What ``csrc/lstm.cu``'s registers cannot hold -- hidden sizes above 32,
+more than 4 layers, more than 4 input channels -- runs on
+``csrc/lstm_wide.cu`` (the wide kernel): the same step on the same state, a
+group of threads per stream, the weights packed input-major
+(``_pack_wide``); up to WIDE_MAX_HIDDEN units, WIDE_MAX_LAYERS layers and
+WIDE_MAX_IN input channels. Where both kernels run a model, ``_is_wide``
+picks by what it sees, as measured on an H100 (PERF.md): the wide kernel
+while the card holds every stream's group at once and the hidden size is
+above 8 (2 x 16 at B = 2,048: 0.25 ms against 1.11 ms), else lstm.cu,
+whose one thread per stream wins once the streams come in waves (2 x 16 at
+B = 32,768: 1.21 ms against 1.70 ms) and at the smallest hidden sizes.
+
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain``, the same step on the same layout in plain torch.
-``launches`` counts kernel launches and nothing else.
+``launches`` counts launches of both kernels (``wide_launches`` those of the
+wide kernel) and nothing else.
 """
 
 from __future__ import annotations
@@ -35,8 +48,10 @@ from .. import activations as act
 from . import _build
 from .stack import SMEM_LIMIT, _np
 
-#: Kernel launches so far; ``step_plain`` does not count.
+#: Kernel launches so far (both kernels); ``step_plain`` does not count.
 launches = 0
+#: Of those, launches of the wide kernel (csrc/lstm_wide.cu).
+wide_launches = 0
 
 MAX_IN = 4  # input channels, MAX_IN in lstm.cu
 HP_TILES = (4, 8, 16, 32)  # padded hidden widths with a kernel instance
@@ -45,6 +60,14 @@ HP_TILES = (4, 8, 16, 32)  # padded hidden widths with a kernel instance
 #: has an instance for every (HP, L) in HP_TILES x 1..MAX_LAYERS.
 MAX_LAYERS = 4
 THREADS = 64  # streams per CTA, THREADS in lstm.cu
+# The wide kernel (csrc/lstm_wide.cu): a group of G threads per stream.
+WIDE_MAX_IN = 8  # XW in lstm_wide.cu
+WIDE_MAX_HIDDEN = 64
+WIDE_MAX_LAYERS = 8
+WIDE_THREADS = 128  # MAX_THREADS in lstm_wide.cu
+#: Threads of wide-kernel groups the card holds at once (132 SMs x 2,048,
+#: rounded down): up to this many, the wide kernel's streams run in one wave.
+WIDE_RESIDENT = 1 << 18
 
 
 def _pad_hidden(H: int) -> int:
@@ -85,16 +108,30 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
         return "passthrough LSTM (num_layers == 0): no recurrence to run"
     if cfg.input_size != cfg.in_channels:
         return f"input_size {cfg.input_size} != in_channels {cfg.in_channels}"
-    if cfg.in_channels > MAX_IN:
-        return f"in_channels {cfg.in_channels} > {MAX_IN}"
-    if cfg.hidden_size > HP_TILES[-1]:
-        return f"hidden_size {cfg.hidden_size} > {HP_TILES[-1]} (h lives in registers)"
-    if cfg.num_layers > MAX_LAYERS:
-        return f"{cfg.num_layers} layers > {MAX_LAYERS}: h of every layer lives in registers"
-    HP = _pad_hidden(cfg.hidden_size)
-    if _smem_bytes(cfg, HP) > SMEM_LIMIT:
-        return f"shared memory {_smem_bytes(cfg, HP)} B > {SMEM_LIMIT} B"
+    if cfg.in_channels > WIDE_MAX_IN:
+        return f"in_channels {cfg.in_channels} > {WIDE_MAX_IN}"
+    if cfg.hidden_size > WIDE_MAX_HIDDEN:
+        return f"hidden_size {cfg.hidden_size} > {WIDE_MAX_HIDDEN}"
+    if cfg.num_layers > WIDE_MAX_LAYERS:
+        return f"{cfg.num_layers} layers > {WIDE_MAX_LAYERS}"
     return None
+
+
+def _is_wide(cfg, batch: int) -> bool:
+    """Whether the wide kernel (csrc/lstm_wide.cu) runs the model: always
+    where lstm.cu cannot (it keeps h of every layer in registers, at most
+    MAX_LAYERS layers of HP_TILES[-1] units, and reads at most MAX_IN input
+    channels); else while the card holds every stream's group of threads at
+    once (batch * G <= WIDE_RESIDENT) and the hidden size is above 8."""
+    if (cfg.in_channels > MAX_IN or cfg.hidden_size > HP_TILES[-1] or cfg.num_layers > MAX_LAYERS
+            or _smem_bytes(cfg, _pad_hidden(cfg.hidden_size)) > SMEM_LIMIT):
+        return True
+    return cfg.hidden_size > 8 and batch * _group(cfg.hidden_size) <= WIDE_RESIDENT
+
+
+def _group(H: int) -> int:
+    """Threads per stream of the wide kernel: 8, 16 or 32, as the hidden size needs."""
+    return 8 if H <= 8 else 16 if H <= 16 else 32
 
 
 # =============================================================================
@@ -106,10 +143,11 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
 class Layout:
     L: int
     H: int
-    HP: int
+    HP: int  # padded hidden width of lstm.cu's packing; H for the wide kernel's
     Cin: int
     O: int
     n_weights: int
+    wide_group: int = 0  # threads per stream of the wide kernel; 0: csrc/lstm.cu runs the model
 
 
 def _pack(cfg, params, HP: int) -> np.ndarray:
@@ -138,16 +176,41 @@ def _pack(cfg, params, HP: int) -> np.ndarray:
     return flat
 
 
-def prepare(cfg, params, T: int, batch: int):
-    """Packed weights and the broadcast initial state on the params' device."""
+def _pack_wide(cfg, params) -> np.ndarray:
+    """The flat float32 weights the wide kernel reads (layout in
+    lstm_wide.cu): per layer, (1 + I + H) rows of H (i, f, g, o) float4s --
+    the bias, then W_x, then W_h, input-major so that a group's lanes read
+    consecutive float4s; then head W (O, H) and head b (O)."""
+    H = cfg.hidden_size
+    parts = []
+    for li, lp in enumerate(params["layers"]):
+        w = _np(lp["w"]).T  # (4H, I+H), rows i, f, g, o
+        rows = np.concatenate([_np(lp["b"])[None], w.T])  # (1 + I + H, 4H)
+        parts.append(rows.reshape(rows.shape[0], 4, H).transpose(0, 2, 1).reshape(-1))
+    return np.concatenate(parts + [_np(params["head_w"]).T.reshape(-1), _np(params["head_b"])])
+
+
+def prepare(cfg, params, T: int, batch: int, wide: Optional[bool] = None):
+    """Packed weights and the broadcast initial state on the params' device.
+    ``wide`` picks the kernel (for measurements; default: ``_is_wide``)."""
     reason = supports(cfg, T, batch)
     if reason is not None:
         raise ValueError(f"fused lstm kernel does not support this config: {reason}")
+    if wide is None:
+        wide = _is_wide(cfg, batch)
+    elif not wide and _is_wide(cfg, 1 << 30):
+        raise ValueError("csrc/lstm.cu cannot run this config: it needs the wide kernel")
     device = params["head_b"].device
-    HP = _pad_hidden(cfg.hidden_size)
-    layout = Layout(L=cfg.num_layers, H=cfg.hidden_size, HP=HP, Cin=cfg.in_channels, O=cfg.out_channels,
-                    n_weights=_n_weights(cfg, HP))
-    eparams = {"layout": layout, "weights": torch.tensor(_pack(cfg, params, HP), device=device)}
+    if wide:
+        flat = _pack_wide(cfg, params)
+        layout = Layout(L=cfg.num_layers, H=cfg.hidden_size, HP=cfg.hidden_size, Cin=cfg.in_channels,
+                        O=cfg.out_channels, n_weights=flat.size, wide_group=_group(cfg.hidden_size))
+    else:
+        HP = _pad_hidden(cfg.hidden_size)
+        flat = _pack(cfg, params, HP)
+        layout = Layout(L=cfg.num_layers, H=cfg.hidden_size, HP=HP, Cin=cfg.in_channels, O=cfg.out_channels,
+                        n_weights=_n_weights(cfg, HP))
+    eparams = {"layout": layout, "weights": torch.tensor(flat, device=device)}
 
     def bcast(key):
         return torch.stack([l[key] for l in params["layers"]])[:, :, None].expand(-1, -1, batch).contiguous()
@@ -162,10 +225,18 @@ def prepare(cfg, params, T: int, batch: int):
 
 def unpack(layout: Layout, weights: torch.Tensor):
     """Per layer (W (4H, I+H), b (4H)) and the head (W (O, H), b (O)), read
-    back out of the packed buffer."""
+    back out of the packed buffer (either kernel's packing)."""
     H, HP = layout.H, layout.HP
     layers = []
     off = 0
+    if layout.wide_group:
+        for li in range(layout.L):
+            rows = 1 + (layout.Cin if li == 0 else H) + H
+            wb = weights[off : off + rows * H * 4].view(rows, H, 4).permute(0, 2, 1).reshape(rows, 4 * H)
+            off += rows * H * 4
+            layers.append((wb[1:].t(), wb[0]))
+        hw = weights[off : off + layout.O * H].view(layout.O, H)
+        return layers, (hw, weights[off + layout.O * H : off + layout.O * H + layout.O])
     for li in range(layout.L):
         iw = layout.Cin if li == 0 else HP
         isz = layout.Cin if li == 0 else H
@@ -218,10 +289,20 @@ def _bind(lib: ctypes.CDLL) -> None:
 LIB = _build.Library("lstm.cu", _bind)
 
 
+def _bind_wide(lib: ctypes.CDLL) -> None:
+    lib.nam_lstm_wide_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.nam_lstm_wide_step.restype = ctypes.c_int
+
+
+#: csrc/lstm_wide.cu, the wide kernel: its own source, so it builds beside lstm.cu.
+WIDE_LIB = _build.Library("lstm_wide.cu", _bind_wide)
+
+
 def launch(layout: Layout, weights: torch.Tensor, h: torch.Tensor, c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on the current stream: x (Cin, T', B) -> y (O, T', B);
+    """Launch the kernel the layout names (csrc/lstm.cu, or csrc/lstm_wide.cu
+    for a wide layout) on the current stream: x (Cin, T', B) -> y (O, T', B);
     h and c (L, H, B) in place."""
-    global launches
+    global launches, wide_launches
     for name, t in (("x", x), ("weights", weights), ("h", h), ("c", c)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
@@ -235,16 +316,21 @@ def launch(layout: Layout, weights: torch.Tensor, h: torch.Tensor, c: torch.Tens
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(layout.L, layout.H, B)}")
     if weights.numel() != layout.n_weights:
         raise ValueError(f"weights hold {weights.numel()} floats, the layout {layout.n_weights}")
-    lib = LIB.load()
     T = x.shape[1]
     y = torch.empty((layout.O, T, B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nam_lstm_step(
-        x.data_ptr(), y.data_ptr(), h.data_ptr(), c.data_ptr(), weights.data_ptr(),
-        T, B, layout.Cin, layout.H, layout.O, layout.n_weights, layout.HP, layout.L,
-        int(act.using_fast_tanh), stream,
-    )
-    LIB.check(err, "lstm kernel")
+    ptrs = (x.data_ptr(), y.data_ptr(), h.data_ptr(), c.data_ptr(), weights.data_ptr())
+    if layout.wide_group:
+        lib = WIDE_LIB.load()
+        err = lib.nam_lstm_wide_step(*ptrs, T, B, layout.Cin, layout.H, layout.L, layout.O, layout.wide_group,
+                                     WIDE_THREADS, int(act.using_fast_tanh), stream)
+        WIDE_LIB.check(err, "lstm wide kernel")
+        wide_launches += 1
+    else:
+        lib = LIB.load()
+        err = lib.nam_lstm_step(*ptrs, T, B, layout.Cin, layout.H, layout.O, layout.n_weights, layout.HP, layout.L,
+                                int(act.using_fast_tanh), stream)
+        LIB.check(err, "lstm kernel")
     launches += 1
     return y
 

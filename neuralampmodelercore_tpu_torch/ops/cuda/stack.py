@@ -46,11 +46,19 @@ that wraps at the LCM of the ring sizes, so slot indices need no device
 round trip; and, with a pre-pass, the condition model's own state. ``step``
 writes the rings in place: the state passed in is consumed.
 
+What ``csrc/stack.cu``'s register tile cannot hold -- more than 32 rows,
+more than 4 input or condition channels, blocks of more than 512 frames --
+runs on ``csrc/stack_wide.cu`` (the wide kernel): the same step on the same
+plan, weights padded to WIDE_RW-row slices, and the same state, with every
+row another slice or frame reads in shared memory; up to WIDE_MAX_ROWS rows,
+WIDE_MAX_IN channels and WIDE_MAX_T frames. ``supports`` picks it only when
+the register-tile kernel refuses the model; the layout records the choice.
+
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain`` (``step_plain_wf`` for the wavefront path), the same step
 on the same state layout in plain torch. ``launches`` counts launches of
-both kernels (``wf_launches`` those of the wavefront kernel) and nothing
-else.
+all three kernels (``wf_launches`` those of the wavefront kernel,
+``wide_launches`` those of the wide kernel) and nothing else.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ from . import _build
 launches = 0
 #: Of those, launches of the wavefront kernel (csrc/stack_wf.cu).
 wf_launches = 0
+#: Of those, launches of the wide kernel (csrc/stack_wide.cu).
+wide_launches = 0
 
 #: Run an eligible model's shallow-layer runs in wavefront micro-steps (K1g).
 #: Off by default, as in the JAX package (stack.py:430); read at every step,
@@ -82,6 +92,13 @@ MAX_T = 512  # one thread per (frame, stream); at most 512 threads per CTA
 MAX_CHANNELS = 32  # register tile; a gated layer's conv has 2 * bottleneck rows
 MAX_IN_CHANNELS = 4  # SMAX in stack.cu: input and condition channels
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+# The wide kernel (csrc/stack_wide.cu): items of one (frame, stream, slice of
+# WIDE_RW rows), looped over by up to WIDE_THREADS threads.
+WIDE_RW = 16  # RW in stack_wide.cu
+WIDE_MAX_ROWS = 128
+WIDE_MAX_IN = 8  # SW in stack_wide.cu
+WIDE_MAX_T = 1024
+WIDE_THREADS = 512
 
 ACT_PRELU_CHANNELS = 11  # PReLU with one slope per channel (stack.cu's own activation code)
 GATING_CODES = {"none": 0, "gated": 1, "blended": 2}
@@ -116,23 +133,30 @@ def _act_reason(a, rows: int) -> Optional[str]:
     return None
 
 
-def _net_reason(cfg, T: int, S: int) -> Optional[str]:
-    """Why the kernel cannot run this WaveNet as one net with condition width
-    S, or None. Covers everything but the condition DSP and the batch."""
+def _limits(wide: bool) -> Tuple[int, int]:
+    """(most rows, most input or condition channels) of a kernel."""
+    return (WIDE_MAX_ROWS, WIDE_MAX_IN) if wide else (MAX_CHANNELS, MAX_IN_CHANNELS)
+
+
+def _net_reason(cfg, T: int, S: int, wide: bool = True) -> Optional[str]:
+    """Why the wide kernel (``wide``) or the register-tile kernel cannot run
+    this WaveNet as one net with condition width S, or None. Covers
+    everything but the condition DSP, the shared memory and the batch."""
     from ...models.wavenet import NONE, head_conv_specs
 
-    if cfg.in_channels > MAX_IN_CHANNELS:
-        return f"in_channels {cfg.in_channels} > {MAX_IN_CHANNELS}"
-    if S > MAX_IN_CHANNELS:
-        return f"condition channels {S} > {MAX_IN_CHANNELS}"
+    max_rows, max_in = _limits(wide)
+    if cfg.in_channels > max_in:
+        return f"in_channels {cfg.in_channels} > {max_in}"
+    if S > max_in:
+        return f"condition channels {S} > {max_in}"
     for ai, ac in enumerate(cfg.layer_arrays):
         where = f"array {ai}"
         if ac.condition_size != S:
             return f"{where}: condition_size {ac.condition_size} != the condition's {S} channels"
         rows = max([ac.input_size, ac.channels, ac.head_size, ac.head_output_size]
                    + [ac.conv_out_channels(li) for li in range(ac.num_layers)])
-        if rows > MAX_CHANNELS:
-            return f"{where}: more than {MAX_CHANNELS} channels (a gated layer's conv counts 2 * bottleneck rows)"
+        if rows > max_rows:
+            return f"{where}: more than {max_rows} channels (a gated layer's conv counts 2 * bottleneck rows)"
         hr_rf = (ac.head_kernel_size - 1) * ac.head_dilation
         if hr_rf > T:
             return f"{where}: head rechannel receptive field {hr_rf} > T={T}"
@@ -149,8 +173,8 @@ def _net_reason(cfg, T: int, S: int) -> Optional[str]:
         for spec in head_conv_specs(cfg.head):
             if spec.kernel_size - 1 > T:
                 return f"post-stack head conv receptive field {spec.kernel_size - 1} > T={T}"
-            if max(spec.in_channels, spec.out_channels) > MAX_CHANNELS:
-                return f"post-stack head: more than {MAX_CHANNELS} channels"
+            if max(spec.in_channels, spec.out_channels) > max_rows:
+                return f"post-stack head: more than {max_rows} channels"
             reason = _act_reason(cfg.head.activation, spec.in_channels)
             if reason is not None:
                 return f"post-stack head: {reason}"
@@ -172,8 +196,8 @@ def _fused_chain(cfg, T: int) -> Optional[Tuple]:
         c = c.condition_config
     chain.reverse()
     S = chain[0].in_channels if chain else 0
-    for c in chain:
-        if _net_reason(c, T, S) is not None:
+    for c in chain:  # the most either kernel runs: the launch then takes the wide one
+        if _net_reason(c, T, S, wide=True) is not None:
             return None
         S = c.out_channels_
     return tuple(chain)
@@ -208,21 +232,45 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
         return f"not a WaveNetConfig: {type(cfg).__name__}"
     if batch < 1:
         return f"batch {batch} < 1"
-    if not 1 <= T <= MAX_T:
-        return f"block size T={T} outside 1..{MAX_T} (one thread per frame and stream)"
-    # The fused chain's nets passed _net_reason in _fused_chain; the model's
-    # condition is the pre-pass output, the last chain net's or the input.
-    nets, S_ext = _net_configs(cfg, T)
-    S = S_ext or (nets[-2].out_channels_ if len(nets) > 1 else cfg.in_channels)
-    reason = _net_reason(cfg, T, S)
+    if not 1 <= T <= WIDE_MAX_T:
+        return f"block size T={T} outside 1..{WIDE_MAX_T}"
+    reason = _nets_reason(cfg, T, wide=True)
     if reason is not None:
         return reason
-    smem = _smem_bytes(nets, T)
-    if smem > SMEM_LIMIT:
-        return f"shared memory {smem} B > {SMEM_LIMIT} B at T={T}"
+    nets = _net_configs(cfg, T)[0]
+    if _is_wide(cfg, T):
+        if not _wide_launch(nets, T)[0]:
+            return f"shared memory {_wide_smem_bytes(nets, T, 1)} B > {SMEM_LIMIT} B at T={T} (wide kernel)"
+        if WAVEFRONT and _wavefront_ineligible(cfg, T) is None:
+            return ("wavefront path: the wide kernel has no wavefront schedule "
+                    "(at most 32 rows, 4 input channels, T <= 512)")
+        return None
     if WAVEFRONT and _wavefront_ineligible(cfg, T) is None and _wf_streams_per_cta(nets, T) == 0:
         return f"wavefront path: shared memory {_wf_smem_bytes(nets, T, 1)} B > {SMEM_LIMIT} B at T={T}"
     return None
+
+
+def _nets_reason(cfg, T: int, wide: bool) -> Optional[str]:
+    """``_net_reason`` of every net the launch runs: the fused condition
+    chain, deepest first, each net's condition the previous one's output
+    (the first one's the input or the pre-pass output), then the model."""
+    nets, S_ext = _net_configs(cfg, T)
+    S = S_ext or nets[0].in_channels
+    for c in nets:
+        reason = _net_reason(c, T, S, wide)
+        if reason is not None:
+            return reason
+        S = c.out_channels_
+    return None
+
+
+def _is_wide(cfg, T: int) -> bool:
+    """Whether the model needs the wide kernel (csrc/stack_wide.cu): the
+    register-tile kernel (csrc/stack.cu) runs at most MAX_T frames,
+    MAX_CHANNELS rows and MAX_IN_CHANNELS input channels in its shared
+    memory."""
+    return (T > MAX_T or _nets_reason(cfg, T, wide=False) is not None
+            or _smem_bytes(_net_configs(cfg, T)[0], T) > SMEM_LIMIT)
 
 
 # =============================================================================
@@ -334,14 +382,16 @@ def _wf_streams_per_cta(nets, T: int) -> int:
 # =============================================================================
 
 
-def _array_tile(ac) -> int:
-    """Register tile of an array: its channels, bottleneck, conv rows and
+def _array_tile(ac, wide: bool = False) -> int:
+    """Padded rows CP of an array: its channels, bottleneck, conv rows and
     head1x1 rows. A gated layer's two halves sit at [0, bn) and [CP/2,
-    CP/2 + bn): CP >= 2 bn, a power of two, so CP/2 >= bn."""
+    CP/2 + bn): CP >= 2 bn, so CP/2 >= bn. The register-tile kernel pads to
+    4, 8, 16 or 32; the wide kernel to a multiple of WIDE_RW, so that a
+    gated layer's halves split into slices of WIDE_RW / 2 rows."""
     rows = [ac.channels, ac.bottleneck] + [ac.conv_out_channels(li) for li in range(ac.num_layers)]
     if ac.head1x1_active:
         rows.append(ac.head1x1_out_channels)
-    return _pad4(max(rows))
+    return -(-max(rows) // WIDE_RW) * WIDE_RW if wide else _pad4(max(rows))
 
 
 def _prm_width(CP: int) -> int:
@@ -350,9 +400,11 @@ def _prm_width(CP: int) -> int:
     return max(CP, act.KERNEL_PARAMS)
 
 
-def _segment_parts(ac, li: int, CP: int) -> List[Tuple[str, int]]:
+def _segment_parts(ac, li: int, CP: int, SW: int = MAX_IN_CHANNELS) -> List[Tuple[str, int]]:
     """(name, floats) of a layer's weight segment, in order; every part a
-    multiple of 4 floats, so each starts 16-byte aligned."""
+    multiple of 4 floats, so each starts 16-byte aligned. SW: the condition
+    width input_mixin_pre_film's weights are padded to (the kernel's most
+    input channels)."""
     from ...models.wavenet import FILM_SITES, layer_film_spec
 
     K, C, S = ac.kernel_sizes[li], ac.channels, ac.condition_size
@@ -365,9 +417,19 @@ def _segment_parts(ac, li: int, CP: int) -> List[Tuple[str, int]]:
     for site in FILM_SITES:
         spec = layer_film_spec(ac, li, site)
         if spec is not None:
-            W = MAX_IN_CHANNELS if site == "input_mixin_pre_film" else CP
+            W = SW if site == "input_mixin_pre_film" else CP
             parts.append((site, (2 if spec.shift else 1) * (S * W + W)))
     return parts
+
+
+def _tail_outs(cfg) -> List[int]:
+    """Output rows of each conv of ``_tail_specs``, in its order."""
+    from ...models.wavenet import head_conv_specs
+
+    out = [ac.head_size for ac in cfg.layer_arrays]
+    if cfg.head is not None:
+        out += [s.out_channels for s in head_conv_specs(cfg.head)]
+    return out
 
 
 def _tail_specs(cfg) -> List[Tuple[int, int, int]]:
@@ -400,6 +462,55 @@ def _smem_bytes(nets, T: int) -> int:
     of the layer (or of a tail conv) that neighbouring frames' taps read."""
     seg_max, rows = _smem_sizes(nets)
     return 4 * (2 * seg_max + 2 * rows * T * _streams_per_cta(T))
+
+
+def _wide_sizes(nets) -> Tuple[int, int, bool]:
+    """The wide kernel's shared buffers: (rows of the layer input,
+    activation and head accumulator buffers, a multiple of WIDE_RW; rows of
+    the condition buffer; whether a layer has conv_pre_film, which adds a
+    buffer for the filmed input)."""
+    from ...models.wavenet import layer_film_spec
+
+    rows = [_array_tile(ac, wide=True) for cfg in nets for ac in cfg.layer_arrays]
+    rows += [max(cin, cout) for cfg in nets for (_, _, cin), cout in zip(_tail_specs(cfg), _tail_outs(cfg))]
+    srows = max(max(cfg.layer_arrays[0].condition_size for cfg in nets), 1)
+    film_pre = any(layer_film_spec(ac, li, "conv_pre_film") is not None
+                   for cfg in nets for ac in cfg.layer_arrays for li in range(ac.num_layers))
+    return -(-max(rows) // WIDE_RW) * WIDE_RW, srows, film_pre
+
+
+def _wide_seg_max(nets) -> int:
+    """Floats of the largest weight segment in the wide kernel's layout."""
+    return max((sum(n for _, n in _segment_parts(ac, li, _array_tile(ac, wide=True), WIDE_MAX_IN))
+                for cfg in nets for ac in cfg.layer_arrays for li in range(ac.num_layers)), default=4)
+
+
+def _wide_smem_bytes(nets, T: int, BS: int, staged: bool = False) -> int:
+    """Three (rows, T, BS) buffers, the condition's and conv_pre_film's, and
+    with ``staged`` a layer's weight segment."""
+    rows, srows, film_pre = _wide_sizes(nets)
+    return 4 * (T * BS * ((4 if film_pre else 3) * rows + srows) + (_wide_seg_max(nets) if staged else 0))
+
+
+def wide_fit(T: int, rows: int, smem_bytes) -> Tuple[int, bool]:
+    """(streams per CTA, whether the weights are staged in shared memory) of a
+    wide kernel (stack_wide.cu, convnet_wide.cu) whose buffers have ``rows``
+    rows and take ``smem_bytes(BS, staged)``: enough items of (frame, stream,
+    slice of WIDE_RW rows) for WIDE_THREADS threads where shared memory
+    allows, the weights staged where they fit beside one stream's buffers;
+    (0, False) if one stream's buffers do not fit."""
+    for staged in (True, False):
+        BS = max(1, WIDE_THREADS // (T * (rows // WIDE_RW)))
+        while BS and smem_bytes(BS, staged) > SMEM_LIMIT:
+            BS -= 1
+        if BS:
+            return BS, staged
+    return 0, False
+
+
+def _wide_launch(nets, T: int) -> Tuple[int, bool]:
+    """``wide_fit`` of the nets the launch runs."""
+    return wide_fit(T, _wide_sizes(nets)[0], lambda BS, staged: _wide_smem_bytes(nets, T, BS, staged))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -467,6 +578,17 @@ class WfLayout:
 
 
 @dataclasses.dataclass(frozen=True)
+class WideLayout:
+    """The wide kernel (csrc/stack_wide.cu): its shared buffers and launch shape."""
+
+    rows: int  # rows of the layer input, activation and head accumulator buffers
+    srows: int  # rows of the condition buffer
+    film_pre: bool  # a conv_pre_film buffer
+    threads: int
+    seg_max: int  # floats of the staged weight segment; 0: the weights are read from device memory
+
+
+@dataclasses.dataclass(frozen=True)
 class Layout:
     T: int
     B: int
@@ -474,7 +596,7 @@ class Layout:
     Cin: int
     Cout: int
     S_ext: int  # width of the pre-pass condition input, 0 if none
-    c_max: int  # register tile of the kernel instance (4/8/16/32)
+    c_max: int  # register tile of the kernel instance (4/8/16/32); WIDE_RW for the wide kernel
     seg_max: int
     state_size: int
     wrap: int
@@ -482,6 +604,17 @@ class Layout:
     nets: Tuple[NetLayout, ...]
     modes: Tuple  # activations.modes() the activation codes were resolved under
     wf: Optional[WfLayout]  # None: the model is not eligible for the wavefront path (or does not fit)
+    wide: Optional["WideLayout"] = None  # the wide kernel's launch shape; None: csrc/stack.cu runs the model
+
+    @property
+    def sw(self) -> int:
+        """Columns of input_mixin_pre_film's weights: the kernel's most input channels."""
+        return WIDE_MAX_IN if self.wide else MAX_IN_CHANNELS
+
+    @property
+    def tail_prm(self) -> int:
+        """Parameter floats of a post-head activation: a slope per row at most."""
+        return WIDE_MAX_ROWS if self.wide else MAX_CHANNELS
 
     @property
     def arrays(self) -> Tuple[ArrayLayout, ...]:
@@ -529,7 +662,7 @@ def _act_code_prm(a, rows: int, width: int) -> Tuple[int, np.ndarray]:
     return code, prm
 
 
-def _layer_parts(ac, li: int, lp: Dict, CP: int):
+def _layer_parts(ac, li: int, lp: Dict, CP: int, SW: int):
     """A layer's weight segment parts (as ``_segment_parts`` names them),
     padded to the register tile, and its activation codes and FiLM shift
     flags. A gated or blended layer's conv rows go [top | bottom] at [0, bn)
@@ -572,7 +705,7 @@ def _layer_parts(ac, li: int, lp: Dict, CP: int):
         if spec is None:
             continue
         dim = spec.input_dim
-        W = MAX_IN_CHANNELS if site == "input_mixin_pre_film" else CP
+        W = SW if site == "input_mixin_pre_film" else CP
         rows = pos if site in ("conv_post_film", "input_mixin_post_film", "activation_pre_film") \
             else np.arange(dim)
         dense = _dense_1x1(lp[site])  # (S, (2 if shift else 1) * dim)
@@ -606,6 +739,8 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
 
     state_size = 0
     wrap = 1
+    wide = _is_wide(cfg, T)
+    SW, tail_prm = (WIDE_MAX_IN, WIDE_MAX_ROWS) if wide else (MAX_IN_CHANNELS, MAX_CHANNELS)
 
     def ring(K: int, d: int, rows: int) -> Tuple[int, int]:
         nonlocal state_size, wrap
@@ -624,7 +759,7 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
         M, off = ring(K, d, cin)
         code, prm = -1, -1
         if act_cfg is not None:
-            code, prm_a = _act_code_prm(act_cfg, cin, MAX_CHANNELS)
+            code, prm_a = _act_code_prm(act_cfg, cin, tail_prm)
             prm = put(prm_a)
         return TailLayout(K=K, d=d, cin=cin, cout=cout, w=w, b=b, M=M, ring=off, act=code, prm=prm)
 
@@ -640,15 +775,15 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
         arrays: List[ArrayLayout] = []
         for ai, ac in enumerate(ncfg.layer_arrays):
             ap = nparams["arrays"][ai]
-            C, CP = ac.channels, _array_tile(ac)
+            C, CP = ac.channels, _array_tile(ac, wide)
             rech = put(_dense_1x1(ap["rechannel"]).T)  # (C, I)
             layers: List[LayerLayout] = []
             for li in range(ac.num_layers):
                 lp = ap["layers"][li]
                 K, d = ac.kernel_sizes[li], ac.dilations[li]
-                parts, act1, act2, shifts = _layer_parts(ac, li, lp, CP)
+                parts, act1, act2, shifts = _layer_parts(ac, li, lp, CP, SW)
                 offs, flat, at = {}, [], 0
-                for name, n in _segment_parts(ac, li, CP):
+                for name, n in _segment_parts(ac, li, CP, SW):
                     a = parts[name].reshape(-1)
                     assert a.size == n, (name, a.size, n)
                     offs[name] = at
@@ -675,7 +810,19 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
             )
         nets.append(NetLayout(S=S, Cout=ncfg.out_channels_, head_scale=head_scale, arrays=tuple(arrays),
                               pheads=pheads))
-    seg_max = _smem_sizes(net_cfgs)[0]
+    seg_max = max(lp.seg_len for n in nets for a in n.arrays for lp in a.layers) if n_layers else 4
+    if wide:
+        rows, srows, film_pre = _wide_sizes(net_cfgs)
+        BS, staged = _wide_launch(net_cfgs, T)
+        items = T * BS * (rows // WIDE_RW)
+        layout = Layout(
+            T=T, B=batch, BS=BS, Cin=cfg.in_channels, Cout=cfg.out_channels_, S_ext=S_ext, c_max=WIDE_RW,
+            seg_max=seg_max, state_size=state_size, wrap=wrap, smem_bytes=_wide_smem_bytes(net_cfgs, T, BS, staged),
+            nets=tuple(nets), modes=act.modes(), wf=None,
+            wide=WideLayout(rows=rows, srows=srows, film_pre=film_pre, threads=min(WIDE_THREADS, -(-items // 32) * 32),
+                            seg_max=seg_max if staged else 0),
+        )
+        return layout, np.concatenate(chunks)
     widths = [cfg.in_channels, S_ext] + [n.S for n in nets]
     widths += [w for n in nets for a in n.arrays for w in (a.CP, a.I, a.HI, a.HS)]
     widths += [w for n in nets for t in n.pheads for w in (t.cin, t.cout)]
@@ -895,7 +1042,7 @@ def _plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torch.Te
 
     def tail(tc: TailLayout, v: torch.Tensor) -> torch.Tensor:
         if tc.act >= 0:
-            v = _act_plain(tc.act, weights[tc.prm : tc.prm + MAX_CHANNELS], v)
+            v = _act_plain(tc.act, weights[tc.prm : tc.prm + layout.tail_prm], v)
         v = v[: tc.cin]
         ring = ring_view(tc.ring, tc.M, tc.cin) if tc.M else None
         y = prod(mat(tc.w, tc.K * tc.cin, tc.cout), taps(tc.K, tc.d, tc.M, ring, v))
@@ -921,7 +1068,7 @@ def _plain(layout: Layout, weights: torch.Tensor, buf: torch.Tensor, x: torch.Te
         ring = ring_view(lp.ring, lp.M, C) if lp.M else None
         z = prod(mat(s, lp.K * C, CP), taps(lp.K, lp.d, lp.M, ring, src, t0, t1)) + vec(s + o["b"], CP)
         z = f("conv_post_film", z)
-        mi = f("input_mixin_pre_film", c, MAX_IN_CHANNELS)
+        mi = f("input_mixin_pre_film", c, layout.sw)
         z = z + f("input_mixin_post_film", prod(mat(s + o["mix"], S, CP), mi))
         z = f("activation_pre_film", z)
         pw = _prm_width(CP)
@@ -1010,10 +1157,17 @@ def _bind_wf(lib: ctypes.CDLL) -> None:
     lib.nam_stack_wf_step.restype = ctypes.c_int
 
 
+def _bind_wide(lib: ctypes.CDLL) -> None:
+    lib.nam_stack_wide_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.nam_stack_wide_step.restype = ctypes.c_int
+
+
 #: csrc/stack.cu, built by nvcc at first launch (``LIB.build_log``: ptxas's report).
 LIB = _build.Library("stack.cu", _bind)
 #: csrc/stack_wf.cu, the wavefront path (K1g): its own source, so it builds beside stack.cu.
 WF_LIB = _build.Library("stack_wf.cu", _bind_wf)
+#: csrc/stack_wide.cu, the wide kernel: its own source, so it builds beside stack.cu.
+WIDE_LIB = _build.Library("stack_wide.cu", _bind_wide)
 
 
 def _check_inputs(layout: Layout, x: torch.Tensor, tensors, plan: torch.Tensor,
@@ -1034,19 +1188,25 @@ def _check_inputs(layout: Layout, x: torch.Tensor, tensors, plan: torch.Tensor,
 
 def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch.Tensor,
            x: torch.Tensor, n: int, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the kernel on the current stream: x (Cin, T, B) and, with a
+    """Launch the kernel the layout names (csrc/stack.cu, or csrc/stack_wide.cu
+    for a wide layout) on the current stream: x (Cin, T, B) and, with a
     pre-pass, cond (S_ext, T, B) -> y (Cout, T, B)."""
-    global launches
+    global launches, wide_launches
     _check_inputs(layout, x, [("x", x), ("weights", weights), ("state", buf)], plan, cond)
-    lib = LIB.load()
     y = torch.empty((layout.Cout, layout.T, layout.B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nam_stack_step(
-        x.data_ptr(), cond.data_ptr() if cond is not None else None, y.data_ptr(), buf.data_ptr(),
-        weights.data_ptr(), plan.data_ptr(), layout.T, layout.B, n, layout.BS, layout.c_max, layout.smem_bytes,
-        stream,
-    )
-    LIB.check(err, "stack kernel")
+    args = (x.data_ptr(), cond.data_ptr() if cond is not None else None, y.data_ptr(), buf.data_ptr(),
+            weights.data_ptr(), plan.data_ptr(), layout.T, layout.B, n, layout.BS)
+    wd = layout.wide
+    if wd is None:
+        lib = LIB.load()
+        LIB.check(lib.nam_stack_step(*args, layout.c_max, layout.smem_bytes, stream), "stack kernel")
+    else:
+        lib = WIDE_LIB.load()
+        err = lib.nam_stack_wide_step(*args, wd.rows, wd.srows, int(wd.film_pre), wd.seg_max, wd.threads,
+                                      layout.smem_bytes, stream)
+        WIDE_LIB.check(err, "stack wide kernel")
+        wide_launches += 1
     launches += 1
     return y
 

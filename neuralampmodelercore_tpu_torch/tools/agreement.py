@@ -11,9 +11,11 @@ one JSON per config into ``--out``. Its configs: those of
 ``AGREEMENT_r05.json`` that the repository builds without the reference's
 example models (post_head, depthwise, lstm_2x8, convnet, and the flagship,
 whose shape is ``wavenet_a1_standard``'s), every WaveNet feature of the
-stack kernel, the two feature main paths of ``chip_smoke.py`` included, and
-the flagship and the ConvNet under the fast-tanh and LUT modes and on the
-wavefront path (``MODES``: each is swept with its mode set around it).
+stack kernel, the two feature main paths of ``chip_smoke.py`` included, the
+reference's LARGE preset and a gated MEDIUM (both on the wide kernel,
+``csrc/stack_wide.cu``), and the flagship and the ConvNet under the
+fast-tanh and LUT modes and on the wavefront path (``MODES``: each is swept
+with its mode set around it).
 
     python3 -m neuralampmodelercore_tpu_torch.tools.agreement [--out DIR]
 
@@ -110,6 +112,17 @@ def flagship_max() -> dict:
     }
 
 
+def medium_gated() -> dict:
+    """The reference's MEDIUM preset (32 then 16 channels, dilations 1..512)
+    with every layer gated: 2 * 32 conv rows in the first array."""
+    from .generate import wavenet_preset
+
+    config = wavenet_preset("medium")
+    for ac in config["layers"]:
+        ac["gated"] = True
+    return config
+
+
 def _chain_layers(ch: int, ks: int, dil, head: int) -> dict:
     return {"layers": [small_layer(channels=ch, kernel_size=ks, dilations=dil, head_size=head)], "head": None}
 
@@ -163,6 +176,9 @@ def configs() -> Dict[str, Tuple[str, dict, int]]:
         "flagship_cond": ("WaveNet", with_condition_dsp(
             wavenet_preset("standard"), make_nam("WaveNet", wavenet_preset("small"), seed=21)), 1234),
         "flagship_max": ("WaveNet", flagship_max(), 1234),
+        # Wider than the register tile of csrc/stack.cu: the wide kernel.
+        "large": ("WaveNet", wavenet_preset("large"), 1234),
+        "medium_gated": ("WaveNet", medium_gated(), 1234),
     }
     for name in MODES:  # the flagship or the ConvNet under a mode
         out[name] = out["convnet" if name.startswith("convnet") else "flagship"]

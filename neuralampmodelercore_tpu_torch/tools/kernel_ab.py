@@ -5,7 +5,9 @@
 Each TREE is the root of a checkout (one holding neuralampmodelercore_tpu_torch/).
 ``--config`` names a config of this checkout's ``tools/agreement.py``, passed to
 every tree as a .nam document; its architecture picks the kernel (WaveNet: the
-stack kernel, LSTM: K2, ConvNet: K3), and a config of ``agreement.MODES`` runs
+stack kernel, LSTM: K2, ConvNet: K3, or their wide kernels where the wrapper's
+gate sends the config there, as it sends ``--config large``, the reference's
+LARGE preset), and a config of ``agreement.MODES`` runs
 under its fast-tanh / LUT mode or on the wavefront path in every tree (a
 tree whose kernel refuses that is skipped). Every tree builds that kernel (all builds
 started together, each into the tree's own build/kernels/), then each
@@ -42,7 +44,7 @@ import neuralampmodelercore_tpu_torch as nam
 mod = importlib.import_module("neuralampmodelercore_tpu_torch.ops.cuda." + kernel)
 if mode == "build":
     t0 = time.perf_counter()
-    for lib in (mod.LIB, getattr(mod, "WF_LIB", None)):
+    for lib in (mod.LIB, getattr(mod, "WF_LIB", None), getattr(mod, "WIDE_LIB", None)):
         if lib is not None:
             lib.compile()
     print(json.dumps({"build_s": time.perf_counter() - t0}))

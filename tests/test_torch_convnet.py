@@ -209,17 +209,29 @@ def test_supports_gate_and_backend():
     assert backend_for(tm.config) is tconv
     for T, batch in ((64, 2048), (16, 1000), (1, 1), (512, 3)):
         assert tconv.supports(tm.config, T, batch) is None, (T, batch)
-    assert "block size" in tconv.supports(tm.config, 1024, 8)
+    assert tconv.supports(tm.config, 1024, 8) is None  # the wide kernel (a thread runs several frames)
+    assert "block size" in tconv.supports(tm.config, 2048, 8)  # the JAX gate refuses it too
     assert "ConvNetConfig" in tconv.supports(object(), 64, 8)
     # A lookback that is not a multiple of T: the JAX kernel refuses, this one runs it.
     _, tn = _models("dilation_not_multiple")
     assert jconv.supports(jnam.load_model(make_nam("ConvNet", CONFIGS["dilation_not_multiple"], seed=7)).config,
                           16, B) is not None
     assert tconv.supports(tn.config, 16, B) is None
-    refused = {
+    # Beyond convnet.cu's register tile, the wide kernel (csrc/convnet_wide.cu) runs them.
+    admitted = {
         "channels": {"channels": 40, "dilations": [1], "batchnorm": False, "activation": "Tanh"},
         "per-channel PReLU": {"channels": 4, "dilations": [1], "batchnorm": False,
                               "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2, 0.3, 0.4]}},
+    }
+    for why, cfg in admitted.items():
+        m = tnam.load_model(make_nam("ConvNet", cfg, seed=0), device="cpu")
+        assert tconv.supports(m.config, 16, 8) is None, why
+        assert tconv.prepare(m.config, m.params, 16, 8)[0]["layout"].wide_threads > 0, why
+        assert tnam.StreamEngine(m, batch=8, block_size=16, kernel="fused").kernel == "fused"
+    refused = {
+        "more than 128 channels": {"channels": 129, "dilations": [1], "batchnorm": False, "activation": "Tanh"},
+        "PReLU with 3 slopes on 4 channels": {"channels": 4, "dilations": [1], "batchnorm": False,
+                                              "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2, 0.3]}},
     }
     for why, cfg in refused.items():
         m = tnam.load_model(make_nam("ConvNet", cfg, seed=0), device="cpu")

@@ -1,5 +1,6 @@
-"""Tests that need the CUDA card: each kernel (stack, stack_wf, lstm,
-convnet) against its plain version on the same CUDA inputs (for the stack
+"""Tests that need the CUDA card: each kernel (stack, stack_wf, stack_wide,
+lstm, lstm_wide, convnet, convnet_wide) against its plain version on the
+same CUDA inputs (for the stack
 kernel, every feature: gating, bottleneck, head1x1, FiLM sites, k>1 head
 rechannel, post-stack head, condition chains and the LSTM pre-pass; the
 fast-tanh and LUT modes in the stack kernel and in K3; the wavefront kernel
@@ -100,6 +101,7 @@ AMP_CONVNET = {"channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 5
         (LSTM_2X16, 34, 256, False),
         ({"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 16, 300, False),
         (LSTM_2X16, 64, 512, True),
+        (LSTM_2X16, 64, 32768, False),  # lstm.cu serves 2 x 16 from here on; below, lstm_wide.cu
     ],
 )
 def test_lstm_kernel_matches_plain_version(config, T, B, fast):
@@ -375,3 +377,47 @@ def test_flagship_fast_tanh_and_wavefront_main_paths(path):
             torch.testing.assert_close(y, yr, rtol=0, atol=ATOL)
         wf = 68 if path == "wavefront" else 0
         assert (tstack.launches, tstack.wf_launches) == (before[0] + 68, before[1] + wf)
+
+
+# The wide kernels (csrc/*_wide.cu): (architecture, config, T, B).
+WIDE_CASES = {
+    "stack_rows48_gated": ("WaveNet", {"layers": [agreement.small_layer(channels=32, bottleneck=24, gated=True)],
+                                       "head": None}, 16, 300),
+    "stack_large": ("WaveNet", wavenet_preset("large"), 64, 256),
+    "stack_flagship_T1024": ("WaveNet", wavenet_preset("standard"), 1024, 64),
+    "stack_in8": ("WaveNet", {"in_channels": 8, "layers": [agreement.small_layer(input_size=8, condition_size=8)],
+                              "head": None}, 16, 300),
+    "lstm_48x2": ("LSTM", {"input_size": 1, "hidden_size": 48, "num_layers": 2}, 34, 300),
+    "lstm_8x5": ("LSTM", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 64, 300),
+    "convnet_64": ("ConvNet", {"channels": 64, "dilations": [1, 2, 4, 8, 128], "batchnorm": True,
+                               "activation": "Tanh"}, 64, 300),
+    "convnet_prelu_per_channel": ("ConvNet", {"channels": 8, "dilations": [1, 2, 4], "batchnorm": True,
+                                              "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2]}}, 16, 300),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_wide_kernels_match_plain_versions(name):
+    """Each wide kernel against its plain version, state carried over 4
+    blocks; every block launches the wide kernel."""
+    _cuda_or_skip()
+    arch, config, T, B = WIDE_CASES[name]
+    mod = {"WaveNet": tstack, "LSTM": tlstm, "ConvNet": tconv}[arch]
+    tm = tnam.load_model(make_nam(arch, config, seed=2))
+    assert mod.supports(tm.config, T, B) is None
+    ep, sk = mod.prepare(tm.config, tm.params, T, B)
+    ref = {k: v.clone() for k, v in sk.items() if torch.is_tensor(v)}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = mod.wide_launches
+    for _ in range(4):
+        x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+        if arch == "LSTM":
+            yp = tlstm.step_plain(ep["layout"], ep["weights"], ref["h"], ref["c"], x)
+        else:
+            yp = mod.step_plain(ep["layout"], ep["weights"], ref["buf"], x, sk["n"] % ep["layout"].wrap)
+        yk, sk = mod.step(tm.config, T, ep, sk, x)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+        for k, v in ref.items():
+            torch.testing.assert_close(sk[k], v, rtol=0, atol=ATOL)
+    assert mod.wide_launches == before + 4

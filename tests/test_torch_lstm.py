@@ -248,11 +248,22 @@ def test_supports_gate_and_backend():
         assert tlstm.supports(tm.config, T, batch) is None, (T, batch)
     assert "batch" in tlstm.supports(tm.config, 64, 0)
     assert "LSTMConfig" in tlstm.supports(object(), 64, 8)
-    refused = {
+    # Beyond lstm.cu's registers, the wide kernel (csrc/lstm_wide.cu) runs them.
+    admitted = {
         "hidden_size": {"input_size": 1, "hidden_size": 40, "num_layers": 1},
         "layers": {"input_size": 1, "hidden_size": 4, "num_layers": 5},
-        "input_size": {"input_size": 2, "hidden_size": 4, "num_layers": 1},
         "in_channels 5": {"input_size": 5, "hidden_size": 4, "num_layers": 1, "in_channels": 5},
+    }
+    for why, cfg in admitted.items():
+        m = tnam.load_model(make_nam("LSTM", cfg, seed=0), device="cpu")
+        assert tlstm.supports(m.config, 64, 8) is None, why
+        assert tlstm.prepare(m.config, m.params, 64, 8)[0]["layout"].wide_group > 0, why
+        assert tnam.StreamEngine(m, batch=8, block_size=16, kernel="fused").kernel == "fused"
+    refused = {
+        "hidden_size 65 > 64": {"input_size": 1, "hidden_size": 65, "num_layers": 1},
+        "9 layers > 8": {"input_size": 1, "hidden_size": 4, "num_layers": 9},
+        "input_size": {"input_size": 2, "hidden_size": 4, "num_layers": 1},
+        "in_channels 9 > 8": {"input_size": 9, "hidden_size": 4, "num_layers": 1, "in_channels": 9},
     }
     for why, cfg in refused.items():
         m = tnam.load_model(make_nam("LSTM", cfg, seed=0), device="cpu")

@@ -49,7 +49,9 @@ def _run(config, T, n_blocks, seed=7, tiers=("pallas", "xla")):
     jm = jnam.load_model(doc)
     tm = tnam.load_model(doc, device="cpu")
     jm.prewarm_on_reset = tm.prewarm_on_reset = False
-    x = (np.random.default_rng(seed).standard_normal((B, n_blocks * T)) * 0.3).astype(np.float32)
+    cin = tm.num_input_channels
+    shape = (B, n_blocks * T) if cin == 1 else (B, n_blocks * T, cin)
+    x = (np.random.default_rng(seed).standard_normal(shape) * 0.3).astype(np.float32)
     fe = tnam.StreamEngine(tm, batch=B, block_size=T, kernel="fused")
     assert fe.kernel == "fused"
     fs = fe.reset(prewarm=False)
@@ -186,10 +188,11 @@ ADMITTED = {
                           "head": None},
 }
 
+# Beyond the register tile -- more than 32 channels, more than 4 input
+# channels -- the wide kernel (csrc/stack_wide.cu) runs them.
 REFUSED = {
-    "wide": ({"layers": [_layer(channels=40)], "head": None}, "channels"),
-    "many_inputs": ({"in_channels": 5, "layers": [_layer(input_size=5, condition_size=5)], "head": None},
-                    "in_channels"),
+    "wide": {"layers": [_layer(channels=40)], "head": None},
+    "many_inputs": {"in_channels": 5, "layers": [_layer(input_size=5, condition_size=5)], "head": None},
 }
 
 
@@ -202,16 +205,15 @@ def test_admitted_features_run_fused(name):
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_supports_refuses_what_is_not_k1a(name):
-    """Beyond the kernel's limits: more than 32 channels, more than 4 input
-    channels."""
-    config, why = REFUSED[name]
-    tm = tnam.load_model(make_nam("WaveNet", config, seed=0), device="cpu")
-    reason = tstack.supports(tm.config, 16, B)
-    assert reason is not None and why in reason
-    # auto takes the torch tier; fused raises.
-    assert tnam.StreamEngine(tm, batch=B, block_size=16).kernel == "torch"
-    with pytest.raises(ValueError, match="fused kernel does not support"):
-        tnam.StreamEngine(tm, batch=B, block_size=16, kernel="fused")
+    """Beyond the register tile's limits -- more than 32 channels, more than
+    4 input channels -- the wide kernel runs the model: supports admits it,
+    the layout is the wide kernel's, and the fused tier matches the JAX
+    Pallas kernel and XLA tier. (What stays refused: tests/test_torch_wide.py.)"""
+    tm = tnam.load_model(make_nam("WaveNet", REFUSED[name], seed=0), device="cpu")
+    assert tstack.supports(tm.config, 16, B) is None
+    ep, _ = tstack.prepare(tm.config, tm.params, 16, 4)
+    assert ep["layout"].wide is not None
+    _run(REFUSED[name], T=16, n_blocks=4)
 
 
 @pytest.mark.parametrize("mode", ["fast_tanh", "lut"])
@@ -235,7 +237,8 @@ def test_supports_block_size_and_backend():
     assert backend_for(tm.config) is tstack
     assert tstack.supports(tm.config, 64, 4096) is None
     assert tstack.supports(tm.config, 64, 100) is None  # any batch: the ragged tile is masked
-    assert "block size" in tstack.supports(tm.config, 1024, B)
+    assert tstack.supports(tm.config, 1024, B) is None  # the wide kernel (a thread runs several frames)
+    assert "block size" in tstack.supports(tm.config, 2048, B)  # the JAX gate refuses it too
     assert "WaveNetConfig" in tstack.supports(object(), 64, B)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
         backend_for(object())

@@ -187,8 +187,10 @@ def test_supports_limits_and_reasons():
         return tstack.supports(tnam.load_model(make_nam("WaveNet", config, seed=0), device="cpu").config, T, B)
 
     layer = agreement.small_layer
-    assert "2 * bottleneck" in reason({"layers": [layer(channels=16, bottleneck=17, gated=True)], "head": None})
+    assert "2 * bottleneck" in reason({"layers": [layer(channels=16, bottleneck=65, gated=True)], "head": None})
+    assert reason({"layers": [layer(channels=16, bottleneck=17, gated=True)], "head": None}) is None  # wide kernel
     assert reason({"layers": [layer(channels=16, bottleneck=16, gated=True)], "head": None}) is None
     assert "post-stack head conv receptive field 20 > T=16" in reason(
         {"layers": [layer()], "head": {"channels": 2, "out_channels": 1, "kernel_sizes": [21], "activation": "Tanh"}})
-    assert "T=1024" in reason(_config("head_k16")[0], T=1024)
+    assert reason(_config("head_k16")[0], T=1024) is None  # the wide kernel
+    assert "T=2048" in reason(_config("head_k16")[0], T=2048)

@@ -1,0 +1,288 @@
+"""The wide kernels of the port against the JAX package: what the register
+tiles of csrc/stack.cu, lstm.cu and convnet.cu cannot hold, and the JAX
+Pallas kernels run.
+
+  - WaveNet (csrc/stack_wide.cu): the reference's LARGE preset (64 then 32
+    channels), a gated MEDIUM (2 * 32 conv rows), rows that are not
+    multiples of the old tiles (33, 40, 48), a wide net inside a fused
+    condition chain, the flagship at T = 600 and 1,024, and 5 and 8 input
+    channels;
+  - LSTM (csrc/lstm_wide.cu): 48 x 2, 64 x 1, 8 x 5 and 2 inputs x 48;
+  - ConvNet (csrc/convnet_wide.cu): 48 and 64 channels, PReLU with a slope
+    per channel, and the amp ConvNet at T = 1,024.
+
+Each config is cut to 2-3 layers per array at its own widths. For each: the
+port's gate admits it and lays it out for the wide kernel, StreamEngine's
+"auto" picks "fused" for a model on the card, and the fused tier (on the
+CPU the kernel's plain version, on the wide kernel's layout) matches the
+JAX package's XLA engine tier over several blocks with state carried,
+within 2e-5 absolute (the JAX package's tier-against-tier tolerance). The
+gate-parity grid holds the port's gate to the JAX gates at full depth and
+B = 2,048; the refusal tests pin what stays refused and that each reason
+names its limit. The CUDA kernels themselves are held against their plain
+versions on the card by chip_smoke.py (phase 3)."""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+import neuralampmodelercore_tpu as jnam
+import neuralampmodelercore_tpu_torch as tnam
+from neuralampmodelercore_tpu.models.engine import StreamEngine as JEngine
+from neuralampmodelercore_tpu.ops.pallas import convnet as jconv
+from neuralampmodelercore_tpu.ops.pallas import lstm as jlstm
+from neuralampmodelercore_tpu.ops.pallas import stack as jstack
+from neuralampmodelercore_tpu.tools.generate import make_nam, wavenet_preset, with_condition_dsp
+from neuralampmodelercore_tpu_torch.ops.cuda import convnet as tconv
+from neuralampmodelercore_tpu_torch.ops.cuda import lstm as tlstm
+from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
+from neuralampmodelercore_tpu_torch.tools import agreement
+
+ATOL = 2e-5
+BATCH = 2
+KERNELS = {"WaveNet": (tstack, jstack), "LSTM": (tlstm, jlstm), "ConvNet": (tconv, jconv)}
+
+
+def _layer(**kw):
+    base = dict(input_size=1, condition_size=1, head_size=1, channels=4, kernel_size=3,
+                dilations=[1, 4, 100], activation="Tanh", gated=False, head_bias=True)
+    base.update(kw)
+    return base
+
+
+def _cut(config, dilations=(1, 32, 1024)):
+    """The config with each array cut to the given dilations: its widths
+    stay, its depth is 3 layers."""
+    config = copy.deepcopy(config)
+    for ac in config["layers"]:
+        ac["dilations"] = [d for d in dilations if d <= max(ac["dilations"])]
+    return config
+
+
+def _wide_condition_chain():
+    """The flagship's second array as a model, conditioned by a 40-channel
+    WaveNet: both nets run in one launch of the wide kernel."""
+    condition = make_nam("WaveNet", {"layers": [_layer(channels=40, head_size=1)], "head": None}, seed=3)
+    return with_condition_dsp({"layers": [_layer(channels=8)], "head": None}, condition)
+
+
+LARGE, MEDIUM_GATED = wavenet_preset("large"), agreement.medium_gated()
+FLAGSHIP = wavenet_preset("standard")
+LARGE128 = copy.deepcopy(LARGE)  # the LARGE preset with 128 channels in its first array
+LARGE128["layers"][0]["channels"] = LARGE128["layers"][1]["input_size"] = 128
+ROWS40 = {"layers": [_layer(channels=40)], "head": None}
+IN5 = {"in_channels": 5, "layers": [_layer(input_size=5, condition_size=5, channels=8)], "head": None}
+IN8 = {"in_channels": 8, "layers": [_layer(input_size=8, condition_size=8, channels=8,
+                                           conv_post_film={"active": True}, input_mixin_pre_film={"active": True})],
+       "head": None}
+AMP = {"channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512], "batchnorm": True, "activation": "Tanh"}
+PRELU_CH = {"channels": 16, "dilations": [1, 2, 4, 8], "batchnorm": True,
+            "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2, 0.3, 0.4]}}
+
+
+def _convnet(channels):
+    return {"channels": channels, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512], "batchnorm": True,
+            "activation": "Tanh"}
+
+
+def _lstm(hidden, layers, inputs=1):
+    return {"input_size": inputs, "in_channels": inputs, "hidden_size": hidden, "num_layers": layers}
+
+
+# (architecture, config at full depth, T): the JAX gates admit each at B = 2,048.
+GATE_GRID = {
+    "wavenet_flagship_T64": ("WaveNet", FLAGSHIP, 64),
+    "wavenet_flagship_T128": ("WaveNet", FLAGSHIP, 128),
+    "wavenet_rows40_T64": ("WaveNet", ROWS40, 64),
+    "wavenet_rows40_T128": ("WaveNet", ROWS40, 128),
+    "wavenet_large_T64": ("WaveNet", LARGE, 64),
+    "wavenet_large_T128": ("WaveNet", LARGE, 128),
+    "wavenet_large128_T64": ("WaveNet", LARGE128, 64),
+    "wavenet_medium_gated_T64": ("WaveNet", MEDIUM_GATED, 64),
+    "wavenet_medium_gated_T128": ("WaveNet", MEDIUM_GATED, 128),
+    "wavenet_flagship_T600": ("WaveNet", FLAGSHIP, 600),
+    "wavenet_flagship_T1024": ("WaveNet", FLAGSHIP, 1024),
+    "wavenet_in5_T64": ("WaveNet", IN5, 64),
+    "wavenet_in8_T64": ("WaveNet", IN8, 64),
+    "lstm_48x2_T64": ("LSTM", _lstm(48, 2), 64),
+    "lstm_64x1_T64": ("LSTM", _lstm(64, 1), 64),
+    "lstm_8x5_T64": ("LSTM", _lstm(8, 5), 64),
+    "lstm_in2_48_T64": ("LSTM", _lstm(48, 1, inputs=2), 64),
+    "convnet_amp_T64": ("ConvNet", AMP, 64),
+    "convnet_amp_T1024": ("ConvNet", AMP, 1024),
+    "convnet_48_T64": ("ConvNet", _convnet(48), 64),
+    "convnet_64_T64": ("ConvNet", _convnet(64), 64),
+    "convnet_128_T64": ("ConvNet", _convnet(128), 64),
+    "convnet_prelu_per_channel_T64": ("ConvNet", PRELU_CH, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GATE_GRID))
+def test_gate_parity_with_the_jax_kernels(name):
+    """Where the JAX package runs a config on its Pallas kernel at B = 2,048,
+    the port runs it on a hand-written kernel too."""
+    arch, config, T = GATE_GRID[name]
+    doc = make_nam(arch, config, seed=0)
+    tmod, jmod = KERNELS[arch]
+    assert jmod.supports(jnam.load_model(doc).config, T, 2048) is None
+    assert tmod.supports(tnam.load_model(doc, device="cpu").config, T, 2048) is None
+
+
+def _auto_kernel(tm, T, batch):
+    """The tier StreamEngine(kernel="auto") picks for this model on the card:
+    the decision reads the model's device; the engine is built on the CPU
+    params and thrown away."""
+    device = tm.device
+    tm.device = torch.device("cuda")
+    try:
+        return tnam.StreamEngine(tm, batch=batch, block_size=T).kernel
+    finally:
+        tm.device = device
+
+
+def _wide_layout(arch, tm, T):
+    """Whether the port lays the model out for its wide kernel at T."""
+    tmod = KERNELS[arch][0]
+    ep, _ = tmod.prepare(tm.config, tm.params, T, BATCH)
+    layout = ep["layout"]
+    return {"WaveNet": lambda: layout.wide is not None, "LSTM": lambda: layout.wide_group > 0,
+            "ConvNet": lambda: layout.wide_threads > 0}[arch]()
+
+
+def _against_jax(arch, config, T, n_blocks, seed=5, prewarm=True):
+    """Gate, auto's pick, the wide layout, then the fused tier against the
+    JAX XLA engine tier over n_blocks with state carried."""
+    # An LSTM's 0.5 s prewarm at 496 Hz is 248 samples: 15 blocks of 16 and 8.
+    doc = make_nam(arch, config, seed=seed, **({"sample_rate": 496} if arch == "LSTM" else {}))
+    jm, tm = jnam.load_model(doc), tnam.load_model(doc, device="cpu")
+    tmod = KERNELS[arch][0]
+    assert tmod.supports(tm.config, T, 2048) is None
+    assert tmod.supports(tm.config, T, BATCH) is None
+    assert _auto_kernel(tm, T, BATCH) == "fused"
+    assert _wide_layout(arch, tm, T)
+    je = JEngine(jm, batch=BATCH, block_size=T, kernel="xla")
+    te = tnam.StreamEngine(tm, batch=BATCH, block_size=T, kernel="fused")
+    js, ts = je.reset(prewarm=prewarm), te.reset(prewarm=prewarm)
+    rng = np.random.default_rng(seed)
+    before = tmod.launches
+    for i in range(n_blocks):
+        blk = (rng.standard_normal((BATCH, T, tm.num_input_channels)) * 0.3).astype(np.float32)
+        yj, js = je.process(blk, js)
+        yt, ts = te.process(blk, ts)
+        assert torch.isfinite(yt).all()
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), rtol=0, atol=ATOL, err_msg=f"{arch} block {i}")
+    assert tmod.launches == before  # CPU tensors never launch a kernel
+    return tm
+
+
+# (config, T, blocks): each cut to 2-3 layers per array at its own widths.
+WAVENETS = {
+    "large_T64": (_cut(LARGE), 64, 4),
+    "large_T128": (_cut(LARGE), 128, 3),
+    "medium_gated_T64": (_cut(MEDIUM_GATED, (1, 8, 512)), 64, 4),
+    "rows33": ({"layers": [_layer(channels=33)], "head": None}, 16, 6),
+    "rows40_blended_head1x1": ({"layers": [_layer(channels=40, bottleneck=20, gating_mode="blended",
+                                                  head1x1={"active": True, "out_channels": 6, "groups": 1})],
+                                "head": None}, 16, 6),
+    "rows48_gated_bottleneck": ({"layers": [_layer(channels=32, bottleneck=24, gated=True)], "head": None}, 16, 6),
+    "wide_condition_chain": (_wide_condition_chain(), 16, 6),
+    "flagship_T600": (FLAGSHIP, 600, 3),
+    "flagship_T1024": (FLAGSHIP, 1024, 3),
+    "in5": (IN5, 16, 6),
+    "in8_film": (IN8, 16, 6),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WAVENETS))
+def test_wide_wavenet_matches_jax(name):
+    config, T, n = WAVENETS[name]
+    tm = _against_jax("WaveNet", config, T, n, prewarm=False)
+    if name == "wide_condition_chain":
+        assert tstack.cond_mode(tm.config, T) == "fused"
+        ep, _ = tstack.prepare(tm.config, tm.params, T, BATCH)
+        assert len(ep["layout"].nets) == 2
+
+
+LSTMS = {
+    "48x2": _lstm(48, 2),
+    "64x1": _lstm(64, 1),
+    "8x5": _lstm(8, 5),
+    "in2_48": _lstm(48, 1, inputs=2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LSTMS))
+def test_wide_lstm_matches_jax_with_exact_prewarm(name):
+    """The exact recurrent prewarm (15 blocks of 16 and an 8-sample
+    remainder) runs through the wide kernel's step too."""
+    tm = _against_jax("LSTM", LSTMS[name], 16, 4)
+    assert tnam.StreamEngine(tm, batch=BATCH, block_size=16, kernel="fused").prewarm_plan() == (15, 8)
+
+
+CONVNETS = {
+    "c48": (_convnet(48), 16, 6),
+    "c64": (_convnet(64), 16, 6),
+    "prelu_per_channel": (PRELU_CH, 16, 6),
+    "amp_T1024": (AMP, 1024, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONVNETS))
+def test_wide_convnet_matches_jax(name):
+    config, T, n = CONVNETS[name]
+    _against_jax("ConvNet", config, T, n)
+
+
+def test_register_tile_kernels_keep_what_they_serve():
+    """WaveNets and ConvNets within the old limits keep csrc/stack.cu and
+    convnet.cu, with their old layouts. An LSTM both LSTM kernels run takes
+    the wide kernel while the card holds every stream's thread group at
+    once and its hidden size is above 8, else lstm.cu (PERF.md: the wide
+    kernel is 4.4x faster on 2 x 16 at B = 2,048, 1.4x slower at 32,768)."""
+    for arch, config, T in (("WaveNet", FLAGSHIP, 64), ("WaveNet", FLAGSHIP, 512), ("ConvNet", AMP, 64),
+                            ("ConvNet", AMP, 512), ("LSTM", _lstm(3, 1), 64), ("LSTM", _lstm(8, 4), 64)):
+        tm = tnam.load_model(make_nam(arch, config, seed=0), device="cpu")
+        assert not _wide_layout(arch, tm, T), (arch, T)
+    for (hidden, layers), batch, wide in ((((16, 2), 2, True), ((16, 2), 2048, True), ((16, 2), 16384, True),
+                                           ((16, 2), 32768, False), ((32, 4), 8192, True), ((32, 4), 8193, False),
+                                           ((48, 2), 1 << 20, True), ((8, 5), 1 << 20, True))):
+        cfg = tnam.load_model(make_nam("LSTM", _lstm(hidden, layers), seed=0), device="cpu").config
+        assert tlstm._is_wide(cfg, batch) == wide, (hidden, layers, batch)
+
+
+# (architecture, config, T, what the reason names): beyond the wide kernels.
+REFUSED = {
+    "wavenet_rows129": ("WaveNet", {"layers": [_layer(channels=129)], "head": None}, 16, "more than 128 channels"),
+    "wavenet_gated_rows130": ("WaveNet", {"layers": [_layer(channels=65, gated=True)], "head": None}, 16,
+                              "2 * bottleneck rows"),
+    "wavenet_in9": ("WaveNet", {"in_channels": 9, "layers": [_layer(input_size=9, condition_size=9)], "head": None},
+                    16, "in_channels 9 > 8"),
+    "wavenet_flagship_T2048": ("WaveNet", FLAGSHIP, 2048, "T=2048 outside 1..1024"),
+    "wavenet_rows32_T1024": ("WaveNet", {"layers": [_layer(channels=32)], "head": None}, 1024,
+                             "shared memory"),
+    "lstm_hidden65": ("LSTM", _lstm(65, 1), 16, "hidden_size 65 > 64"),
+    "lstm_layers9": ("LSTM", _lstm(4, 9), 16, "9 layers > 8"),
+    "lstm_in9": ("LSTM", _lstm(4, 1, inputs=9), 16, "in_channels 9 > 8"),
+    "convnet_129": ("ConvNet", {"channels": 129, "dilations": [1], "batchnorm": False, "activation": "Tanh"}, 16,
+                    "more than 128 channels"),
+    "convnet_amp_T2048": ("ConvNet", AMP, 2048, "T=2048 outside 1..1024"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_supports_refuses_beyond_the_wide_kernels(name):
+    """What stays refused names its limit; auto takes the torch tier and
+    fused raises. A block above the JAX gate's is refused by both."""
+    arch, config, T, why = REFUSED[name]
+    doc = make_nam(arch, config, seed=0)
+    tm = tnam.load_model(doc, device="cpu")
+    tmod, jmod = KERNELS[arch]
+    reason = tmod.supports(tm.config, T, 4)
+    assert reason is not None and why in reason, reason
+    assert _auto_kernel(tm, T, 4) == "torch"
+    with pytest.raises(ValueError, match="fused kernel does not support"):
+        tnam.StreamEngine(tm, batch=4, block_size=T, kernel="fused")
+    if "T2048" in name:
+        assert jmod.supports(jnam.load_model(doc).config, T, 2048) is not None

@@ -16,14 +16,17 @@ K1f) and flagship_wavefront (the flagship on the wavefront-scheduled kernel,
 csrc/stack_wf.cu, K1g); on the wide kernels (csrc/stack_wide.cu,
 lstm_wide.cu, convnet_wide.cu): large (the reference's LARGE WaveNet, 64
 then 32 channels, at full width), medium_gated (2 * 32 conv rows),
-flagship_T1024 (the flagship at T=1,024), lstm_48x2 and convnet_64; and the
-benchmodel entry point with --engine --fast-tanh. Phases (any failure raises
-and exits non-zero):
+flagship_T1024 (the flagship at T=1,024), lstm_48x2 and convnet_64; the
+benchmodel entry point with --engine --fast-tanh; and the port's two tools,
+the ring-slot prototype (K4, csrc/proto_ring.cu) and the dot-chain
+microbenchmark (K5 and K6, csrc/dot_chain.cu), through their entry points.
+Phases (any failure raises and exits non-zero):
   1. the card: torch's device name and nvidia-smi's name and power limit;
   2. build every kernel from the checkout's sources (one nvcc per source,
-     stack.cu, stack_wf.cu, stack_wide.cu, lstm.cu, lstm_wide.cu, convnet.cu
-     and convnet_wide.cu all started together, sm_90a) and print each build
-     time and ptxas's register / spill report per kernel instance;
+     stack.cu, stack_wf.cu, stack_wide.cu, lstm.cu, lstm_wide.cu, convnet.cu,
+     convnet_wide.cu, proto_ring.cu and dot_chain.cu all started together,
+     sm_90a) and print each build time and ptxas's register / spill report
+     per kernel instance;
   3. each kernel against its plain PyTorch version on the card, same inputs
      from a seed, state carried, outputs and state to <= 2e-5 absolute:
      stack (the flagship at T=64 and T=16, offset-splice dilations, every
@@ -53,6 +56,12 @@ and exits non-zero):
      step_plain_wf on the flagship at T=64, 16 and 20 (sub-tiles of 5 frames)
      and on offset-splice dilations at T=32, and a stream that switches
      WAVEFRONT on and off between blocks against the unpacked plain version;
+     K4 at the prototype's shapes for n = 0, 1, 2, 3, 5, 7 (the slots wrap),
+     ring carried: exact (0.0) on y and the ring, the ring's storage
+     unchanged, the other slots bit-identical, one launch per step; K5 and
+     K6 in f32 and bf16 at the tool's shapes and scale (N = 65,536), one
+     launch per chain: f32 within 2e-5 x max|output| (K5, 20 steps) or 2e-5
+     (K6), bf16 within 2e-2 x max|output|;
   4. each main path end to end at B=2048, T=64 (flagship_T1024: T=1,024;
      lstm_2x16_B32768: B=32768):
      load_model on the card, StreamEngine with kernel="auto" (must pick
@@ -64,7 +73,11 @@ and exits non-zero):
      large's 160 the wide kernel's), and the output must be finite and
      within 2e-5 of the torch engine tier on the card (under the same mode);
      then `python -m neuralampmodelercore_tpu_torch.cli.benchmodel` on the
-     flagship .nam with --engine --fast-tanh --batch 2048, as a subprocess;
+     flagship .nam with --engine --fast-tanh --batch 2048, and the tools'
+     entry points `python -m neuralampmodelercore_tpu_torch.tools.
+     proto_ring_kernel` and `...tools.microbench_dots`, each as a subprocess
+     whose JSON line gives its launch counts (each tool sets its counters to
+     0 before its run; none may be 0 after) and, for K4, its exact check;
   5. per-block times with CUDA events after warm-up, printed beside the
      card's name and power limit: the kernel (twice), its plain version, the
      torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
@@ -78,13 +91,17 @@ and exits non-zero):
      for the real-time 48 kHz stream count of each model, of the flagship
      paths and of the five wide-kernel paths (at T=1,024 for
      flagship_T1024: its deadline is 21.3 ms); and both LSTM kernels on 2 x 16 at B=2048 and 32768, in
-     turns (the measurement behind the LSTM wrapper's choice);
+     turns (the measurement behind the LSTM wrapper's choice); K4 and each
+     K5/K6 variant: the kernel (twice, in turns with its plain version), its
+     plain version and the library call, against a bound at the variant's
+     rate (float32 FMAs, or the bf16 tensor cores);
   6. the agreement sweep (neuralampmodelercore_tpu_torch/tools/agreement.py):
      every kernel config against the torch engine tier, 8 blocks at B=256
      and 512, T=64, within 2e-5 (the mode configs with their mode set around
      them); one JSON per config;
-  7. a {"kernels": [...]} line, then as the last line
-     {"ok": true, "device": {...}}.
+  7. a {"kernels": [...]} line (ten kernels; K5's numbers are the f32
+     chain's, K6's f32 at G=4, each variant's under "variants"), then as
+     the last line {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX; it needs a CUDA card and exits non-zero
 without one.
@@ -105,6 +122,7 @@ import torch
 ATOL = 2e-5  # tier-against-tier tolerance of the JAX package (tests/test_pallas_stack.py:32)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, bf16 on the tensor cores, dense, published
 SAMPLE_RATE = 48000.0
 SEED = 1234
 B_MAIN, T_MAIN, N_BLOCKS = 2048, 64, 32
@@ -156,7 +174,16 @@ REPLACES = {
     "convnet_wide_step": ("neuralampmodelercore_tpu/ops/pallas/convnet.py:458",
                           "neuralampmodelercore_tpu/ops/pallas/convnet.py _make_kernel beyond 32 channels or 512 "
                           "frames, and per-channel PReLU (G2, G4, G6)"),
+    "proto_ring_step": ("tools/proto_ring_kernel.py:57", "tools/proto_ring_kernel.py step -> kernel (K4)"),
+    "dot_chain": ("tools/microbench_pallas_dots.py:77",
+                  "tools/microbench_pallas_dots.py make_chain.run -> chain_kernel (K5)"),
+    "dot_chain_packed": ("tools/microbench_pallas_dots.py:115",
+                         "tools/microbench_pallas_dots.py make_packed.run -> packed_kernel (K6)"),
 }
+# The tools' kernels: entry name -> (source, the variant whose numbers stand at the top of the entry).
+TOOL_KERNELS = {"proto_ring_step": ("proto_ring.cu", None), "dot_chain": ("dot_chain.cu", "chain f32"),
+                "dot_chain_packed": ("dot_chain.cu", "packed G=4 f32")}
+PROTO_NS = (0, 1, 2, 3, 5, 7)  # K4's step counters: the slots wrap at M = 4
 # The kernel each wrapper's wide counter counts.
 WIDE_OF = {"stack_step": "stack_wide_step", "lstm_step": "lstm_wide_step", "convnet_step": "convnet_wide_step"}
 
@@ -368,10 +395,10 @@ def time_per_block(fn, n_iter=20, n_warm=3):
     return start.elapsed_time(end) / n_iter
 
 
-def bound(work):
+def bound(work, flops_per_s=F32_FLOPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and FLOPs over
-    the float32 rate."""
-    tb, tf = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / F32_FLOPS_PER_S
+    the rate the work runs at (float32 unless stated)."""
+    tb, tf = work["bytes"] / HBM_BYTES_PER_S, work["flops"] / flops_per_s
     return 1e3 * max(tb, tf), "bytes" if tb >= tf else "operations"
 
 
@@ -612,6 +639,115 @@ def run_benchmodel(doc) -> dict:
     return {"cmd": " ".join(cmd[1:]), "line": line}
 
 
+def compare_proto_ring(prk, seed):
+    """K4 against its plain version at the prototype's shapes, ring carried
+    over PROTO_NS: exact on y and the ring, the ring written in place, the
+    slots other than wslot bit-identical, one launch per step."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ring = torch.randn((prk.M, prk.NT, prk.C, prk.TW), generator=gen, device="cuda")
+    ring_plain, storage, err = ring.clone(), ring.data_ptr(), 0.0
+    for n in PROTO_NS:
+        x = torch.randn((prk.C, prk.NT * prk.TW), generator=gen, device="cuda")
+        nt = torch.tensor(n, dtype=torch.int32, device="cuda")
+        prev, before = ring.clone(), prk.launches
+        y = prk.step(ring, x, nt)
+        yp = prk.step_plain(ring_plain, x, nt)
+        torch.cuda.synchronize()
+        if prk.launches != before + 1 or ring.data_ptr() != storage:
+            raise RuntimeError(f"proto_ring n={n}: {prk.launches - before} launches, in place {ring.data_ptr() == storage}")
+        if not all(torch.equal(ring[m], prev[m]) for m in range(prk.M) if m != n % prk.M):
+            raise RuntimeError(f"proto_ring n={n}: a slot other than wslot changed")
+        err = max(err, (y - yp).abs().max().item(), (ring - ring_plain).abs().max().item())
+    log(f"compare proto_ring: n = {PROTO_NS}, ring {tuple(ring.shape)}: max|kernel - plain| = {err:.3e} "
+        f"(y and ring), in place, other slots untouched, one launch per step")
+    if err != 0.0:
+        raise RuntimeError(f"proto_ring: kernel differs from its plain version by {err}")
+    return err
+
+
+def compare_dot_chain(mbd, operands):
+    """K5 and K6 in every variant against their plain versions at the tool's
+    shapes and scale, one launch per chain. f32: 2e-5 x max|output| for the
+    20-step chain (its output decays to about 2e-4), 2e-5 for K6 (order 1);
+    bf16: 2e-2 x max|output|. Returns the error per variant."""
+    errs = {}
+    for name, key, G, d in mbd.cases():
+        x, w = operands[key]
+        dtype = mbd.DTYPES[d]
+        before = (mbd.chain_launches, mbd.packed_launches)
+        if G is None:
+            got, want = mbd.chain(x, w, dtype), mbd.chain_plain(x, w, dtype)
+        else:
+            got, want = mbd.packed(x, w, G, dtype), mbd.packed_plain(x, w, G, dtype)
+        torch.cuda.synchronize()
+        launched = (mbd.chain_launches - before[0], mbd.packed_launches - before[1])
+        if launched != ((1, 0) if G is None else (0, 1)) or got.shape != want.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"dot_chain {name}: launches (chain, packed) {launched}, shape {tuple(got.shape)}")
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        tol = 2e-2 * scale if d == "bf16" else (2e-5 * scale if G is None else 2e-5)
+        log(f"compare dot_chain {name}: x {tuple(x.shape)}, w {tuple(w.shape)}: max|kernel - plain| = {err:.3e} "
+            f"(max|output| {scale:.3e}, tolerance {tol:.3e})")
+        if not err <= tol:
+            raise RuntimeError(f"dot_chain {name}: kernel disagrees with its plain version: {err:.3e} > {tol:.3e}")
+        errs[name] = err
+    return errs
+
+
+def run_tool(module) -> dict:
+    """A tool's entry point as a user runs it, ``python -m``, in a subprocess
+    of this checkout; its last JSON line is returned. A non-zero exit fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", f"neuralampmodelercore_tpu_torch.tools.{module}"]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines():
+        if not line.startswith("{"):
+            log(f"{module}: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} exited {proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
+
+
+def time_tools(prk, mbd, operands, gen, smi):
+    """K4 and every K5/K6 variant: the kernel (twice, in turns with its
+    plain version), the plain version and the library call, in ms per call,
+    with the bound at the variant's rate."""
+    times = {}
+    ring = torch.randn((prk.M, prk.NT, prk.C, prk.TW), generator=gen, device="cuda")
+    ring_plain, ring_lib = ring.clone(), ring.clone()
+    x = torch.randn((prk.C, prk.NT * prk.TW), generator=gen, device="cuda")
+    n = torch.tensor(2, dtype=torch.int32, device="cuda")
+    runs = {"kernel": lambda: prk.step(ring, x, n), "plain": lambda: prk.step_plain(ring_plain, x, n),
+            "library": lambda: prk.step_library(ring_lib, x, n)}
+    times["proto_ring_step"] = _time_turns(runs, prk.work(), F32_FLOPS_PER_S, "proto_ring_step", smi)
+    for name, key, G, d in mbd.cases():
+        x, w = operands[key]
+        dtype, wl = mbd.DTYPES[d], w.to(mbd.DTYPES[d])
+        if G is None:
+            runs = {"kernel": lambda: mbd.chain(x, w, dtype), "plain": lambda: mbd.chain_plain(x, w, dtype)}
+        else:
+            runs = {"kernel": lambda: mbd.packed(x, w, G, dtype), "plain": lambda: mbd.packed_plain(x, w, G, dtype)}
+        runs["library"] = lambda: mbd.chain_library(x, wl, dtype)
+        S, R, _ = w.shape
+        rate = F32_FLOPS_PER_S if d == "f32" else BF16_TC_FLOPS_PER_S
+        times[name] = _time_turns(runs, mbd.work(R, S, x.shape[1], dtype), rate, f"dot_chain {name}", smi)
+        times[name]["shape"] = {"R": R, "S": S, "N": x.shape[1], "dtype": d}
+    return times
+
+
+def _time_turns(runs, work, rate, label, smi):
+    """Kernel, plain, kernel, plain, then the library call (ms per call)."""
+    k1 = time_per_block(runs["kernel"], n_iter=50, n_warm=5)
+    p1 = time_per_block(runs["plain"], n_iter=10, n_warm=2)
+    k2 = time_per_block(runs["kernel"], n_iter=50, n_warm=5)
+    p2 = time_per_block(runs["plain"], n_iter=10, n_warm=2)
+    lib_ms = time_per_block(runs["library"], n_iter=20, n_warm=2)
+    b_ms, b_by = bound(work, rate)
+    log(f"time {label}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.6f} ms ({b_by})  [{smi}]")
+    return {"kernel_ms": [k1, k2], "plain_ms": [p1, p2], "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": work["bytes"], "flops": work["flops"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the full report as JSON here")
@@ -625,6 +761,8 @@ def main() -> int:
     from neuralampmodelercore_tpu_torch.ops import activations as act
     from neuralampmodelercore_tpu_torch.ops.cuda import convnet, lstm, stack
     from neuralampmodelercore_tpu_torch.tools import agreement
+    from neuralampmodelercore_tpu_torch.tools import microbench_dots as mbd
+    from neuralampmodelercore_tpu_torch.tools import proto_ring_kernel as prk
     from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset, with_condition_dsp
 
     modules = {"stack_step": stack, "lstm_step": lstm, "convnet_step": convnet}
@@ -647,12 +785,13 @@ def main() -> int:
         lib.load()
         return so, time.perf_counter() - t0
 
+    all_libs = {**libs, "proto_ring_step": prk.LIB, "dot_chain": mbd.LIB}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as ex:
-        built = dict(zip(libs, ex.map(build, libs.values())))
+    with ThreadPoolExecutor(len(all_libs)) as ex:
+        built = dict(zip(all_libs, ex.map(build, all_libs.values())))
     report["build_s"] = {"wall": time.perf_counter() - t0}
     report["ptxas"] = {}
-    for name, lib in libs.items():
+    for name, lib in all_libs.items():
         so, secs = built[name]
         report["build_s"][name] = secs
         log(f"build: {lib.source.name} -> {so.name} in {secs:.1f} s")
@@ -660,7 +799,7 @@ def main() -> int:
                                  if any(k in line for k in ("Compiling entry", "registers", "spill", "error"))]
         for line in report["ptxas"][name]:
             log(f"  ptxas {lib.source.name}: {line}")
-    log(f"build: all {len(libs)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
+    log(f"build: all {len(all_libs)} libraries in {report['build_s']['wall']:.1f} s (in parallel)")
 
     # -- 3. kernel vs plain -----------------------------------------------
     features = agreement.configs()  # name -> (architecture, config, seed)
@@ -794,6 +933,10 @@ def main() -> int:
     for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
         kname, err = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
         errs[kname][key] = err
+    # The tools' kernels (K4-K6) at their tools' shapes.
+    errs["proto_ring_step"] = {"n_0_1_2_3_5_7": compare_proto_ring(prk, SEED)}
+    dot_operands = {k: (torch.from_numpy(x).cuda(), torch.from_numpy(w).cuda()) for k, (x, w) in mbd.data().items()}
+    errs["dot_chain"] = compare_dot_chain(mbd, dot_operands)
     report["max_abs_err"] = errs
 
     # -- 4. the main paths ----------------------------------------------------
@@ -830,6 +973,18 @@ def main() -> int:
     report["main_path"] = main
     torch.cuda.empty_cache()
     report["benchmodel"] = run_benchmodel(make_nam("WaveNet", wavenet_preset("standard"), seed=SEED))
+    # The tools' entry points: each sets its counters to 0, runs, and reports them.
+    tools = {"proto_ring_kernel": run_tool("proto_ring_kernel"), "microbench_dots": run_tool("microbench_dots")}
+    ring_run = tools["proto_ring_kernel"]
+    if ring_run["launches"] != 1 or ring_run["err_y"] != 0.0 or ring_run["err_ring"] != 0.0:
+        raise RuntimeError(f"proto_ring_kernel entry point: {ring_run}")
+    dot_runs = tools["microbench_dots"]["runs"]
+    if sorted(dot_runs) != sorted(c[0] for c in mbd.cases()) or not all(r["launches"] > 0 for r in dot_runs.values()):
+        raise RuntimeError(f"microbench_dots entry point: runs {sorted(dot_runs)}, "
+                           f"launches {[r['launches'] for r in dot_runs.values()]}")
+    log(f"tools: proto_ring_kernel {ring_run['launches']} launch, exact; microbench_dots launches "
+        f"{tools['microbench_dots']['launches']} over {len(dot_runs)} runs")
+    report["tools"] = tools
 
     # -- 5. timing ------------------------------------------------------------
     report["times"] = {
@@ -854,6 +1009,7 @@ def main() -> int:
             nam, stack, "stack_wf_step", main_models["flagship_wavefront"], (1024, 2048, 4096), gen, smi,
             path="flagship_wavefront", plain="step_plain_wf")
     report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], gen, smi)
+    report["tool_times"] = time_tools(prk, mbd, dot_operands, gen, smi)
     # lstm.cu's own path: the 2 x 16 timing at B=32768, where it serves.
     report["times"]["lstm_2x16_B32768"] = {32768: report["times"]["lstm_2x16"][32768]}
     for path, (kernel, arch, key, rate, T, full, rem) in WIDE_PATHS.items():
@@ -920,6 +1076,32 @@ def main() -> int:
             entry["paths"] = {path: numbers(path) for path, (k, *_) in WIDE_PATHS.items() if k == name}
         elif name == "lstm_wide_step":
             entry["paths"] = {path: numbers(path) for path in ("lstm_2x16", "lstm_48x2")}
+        kernels.append(entry)
+    # The tools' kernels: launches from their entry points' runs, the rest from phases 3 and 5.
+    variant_names = {"dot_chain": [c[0] for c in mbd.cases() if c[2] is None],
+                     "dot_chain_packed": [c[0] for c in mbd.cases() if c[2] is not None]}
+
+    def tool_numbers(variant, launched, err):
+        t = report["tool_times"][variant]
+        return {"launches": launched, "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "max_abs_err": err}
+
+    for name, (source, top) in TOOL_KERNELS.items():
+        replaces, counterpart = REPLACES[name]
+        entry = {"name": name, "route": "cuda", "source": f"neuralampmodelercore_tpu_torch/csrc/{source}",
+                 "replaces": replaces, "tpu_counterpart": counterpart}
+        if top is None:
+            entry.update(tool_numbers("proto_ring_step", ring_run["launches"], errs[name]["n_0_1_2_3_5_7"]))
+            entry["shape"] = {"ring": [prk.M, prk.NT, prk.C, prk.TW], "x": [prk.C, prk.NT * prk.TW]}
+        else:
+            variants = {v: {**tool_numbers(v, dot_runs[v]["launches"], errs["dot_chain"][v]),
+                            "tool_us": dot_runs[v]["us"], "shape": report["tool_times"][v]["shape"]}
+                        for v in variant_names[name]}
+            entry.update({k: v for k, v in variants[top].items() if k not in ("tool_us",)})
+            entry["variant"] = top
+            entry["variants"] = variants
+        entry["kernel_ms"] = entry["ms"]
         kernels.append(entry)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

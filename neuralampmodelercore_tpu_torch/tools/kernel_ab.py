@@ -104,11 +104,11 @@ def main(argv=None) -> int:
         return 2
     from concurrent.futures import ThreadPoolExecutor
 
+    from ..utils.profiling import card_and_power_limit
     from .agreement import MODES, configs
     from .generate import make_nam
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = card_and_power_limit()
     print(smi, flush=True)
     trees = [os.path.abspath(t) for t in args.trees]
     arch, config, seed = configs()[args.config]

@@ -9,11 +9,19 @@ the host clock.
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+
+def card_and_power_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def sync(device=None) -> None:

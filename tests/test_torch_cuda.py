@@ -1,6 +1,6 @@
 """Tests that need the CUDA card: each kernel (stack, stack_wf, stack_wide,
-lstm, lstm_wide, convnet, convnet_wide) against its plain version on the
-same CUDA inputs (for the stack
+lstm, lstm_wide, convnet, convnet_wide, and the tools' proto_ring and
+dot_chain) against its plain version on the same CUDA inputs (for the stack
 kernel, every feature: gating, bottleneck, head1x1, FiLM sites, k>1 head
 rechannel, post-stack head, condition chains and the LSTM pre-pass; the
 fast-tanh and LUT modes in the stack kernel and in K3; the wavefront kernel
@@ -26,6 +26,8 @@ from neuralampmodelercore_tpu_torch.ops.cuda import convnet as tconv
 from neuralampmodelercore_tpu_torch.ops.cuda import lstm as tlstm
 from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
 from neuralampmodelercore_tpu_torch.tools import agreement
+from neuralampmodelercore_tpu_torch.tools import microbench_dots as tmbd
+from neuralampmodelercore_tpu_torch.tools import proto_ring_kernel as tprk
 from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
 
 ATOL = 2e-5
@@ -421,3 +423,63 @@ def test_wide_kernels_match_plain_versions(name):
         for k, v in ref.items():
             torch.testing.assert_close(sk[k], v, rtol=0, atol=ATOL)
     assert mod.wide_launches == before + 4
+
+
+@pytest.mark.cuda
+def test_proto_ring_kernel_matches_plain_version():
+    """K4 at the prototype's shapes over n = 0, 1, 2, 3, 5, 7 (the slots
+    wrap), state carried: exact on y and on the ring, the ring written in
+    place, the slots other than wslot bit-identical, one launch per step."""
+    _cuda_or_skip()
+    ring0, x0 = tprk.data()
+    ring = torch.from_numpy(ring0).cuda()
+    ring_plain = ring.clone()
+    storage = ring.data_ptr()
+    x = torch.from_numpy(x0).cuda()
+    for n in (0, 1, 2, 3, 5, 7):
+        nt = torch.tensor(n, dtype=torch.int32, device="cuda")
+        prev = ring.clone()
+        before = tprk.launches
+        y = tprk.step(ring, x, nt)
+        yp = tprk.step_plain(ring_plain, x, nt)
+        torch.cuda.synchronize()
+        assert tprk.launches == before + 1
+        assert ring.data_ptr() == storage
+        assert torch.equal(y, yp) and torch.equal(ring, ring_plain)
+        for m in range(tprk.M):
+            assert torch.equal(ring[m], prev[m]) == (m != n % tprk.M)
+        x = y  # the next step writes other data
+
+
+DOT_CASES = [("chain", None, "f32"), ("chain", None, "bf16"), ("packed", 4, "f32"), ("packed", 4, "bf16"),
+             ("packed", 8, "f32"), ("packed", 8, "bf16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G,dtype", DOT_CASES)
+def test_dot_chain_kernel_matches_plain_version(kind, G, dtype):
+    """K5 and K6 at the tool's shapes and scale, N = 65,536 columns (and a
+    ragged N = 1,000): one launch per chain. f32: 2e-5 x max|output| for the
+    20-step chain, 2e-5 absolute for K6; bf16: 2e-2 x max|output|."""
+    _cuda_or_skip()
+    x_np, w_np = tmbd.data()["chain" if G is None else f"G{G}"]
+    w = torch.from_numpy(w_np).cuda()
+    td = tmbd.DTYPES[dtype]
+    for N in (x_np.shape[1], 1000):
+        x = torch.from_numpy(x_np[:, :N].copy()).cuda()
+        before = (tmbd.chain_launches, tmbd.packed_launches)
+        if G is None:
+            got, want = tmbd.chain(x, w, td), tmbd.chain_plain(x, w, td)
+        else:
+            got, want = tmbd.packed(x, w, G, td), tmbd.packed_plain(x, w, G, td)
+        torch.cuda.synchronize()
+        assert (tmbd.chain_launches, tmbd.packed_launches) == (before[0] + (G is None), before[1] + (G is not None))
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if dtype == "bf16":
+            assert err <= 2e-2 * scale
+        elif G is None:
+            assert err <= 2e-5 * scale
+        else:
+            assert err <= 2e-5

@@ -1,7 +1,7 @@
-"""The port stands alone: no file of it, and not chip_smoke.py, imports JAX
-or the JAX package; its entry points run on the card unless the caller asks
-for the CPU; chip_smoke.py refuses to run without a card or without the
-repository."""
+"""The port stands alone: no file of it, and not chip_smoke.py, imports JAX,
+the JAX package or the repo-root ``tools/`` (the JAX tools that K4-K6 port);
+its entry points run on the card unless the caller asks for the CPU;
+chip_smoke.py refuses to run without a card or without the repository."""
 
 import ast
 import os
@@ -18,7 +18,7 @@ from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_pres
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "neuralampmodelercore_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "neuralampmodelercore_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "neuralampmodelercore_tpu", "tools"}
 
 
 def _imported_roots(path: Path):
@@ -45,9 +45,10 @@ def test_scan_covers_the_package():
     assert {
         "__init__.py", "models/engine.py", "models/wavenet.py", "models/lstm.py", "models/convnet.py",
         "ops/cuda/_build.py", "ops/cuda/stack.py", "ops/cuda/lstm.py", "ops/cuda/convnet.py",
-        "cli/loadmodel.py", "cli/benchmodel.py",
+        "cli/loadmodel.py", "cli/benchmodel.py", "tools/proto_ring_kernel.py", "tools/microbench_dots.py",
     } <= names
-    for src in ("stack.cu", "stack_wf.cu", "lstm.cu", "convnet.cu", "activations.cuh", "stack.cuh"):
+    for src in ("stack.cu", "stack_wf.cu", "lstm.cu", "convnet.cu", "activations.cuh", "stack.cuh", "proto_ring.cu",
+                "dot_chain.cu"):
         assert (PORT / "csrc" / src).exists()
 
 

@@ -47,8 +47,10 @@ Phases (any failure raises and exits non-zero):
      LARGE, a 40-channel net inside a fused condition chain, the flagship at
      T=600 and T=1,024, 8 input channels with FiLM), lstm_wide (48 x 2,
      64 x 1 and 8 x 5, each at T=64 with a ragged B and at T=34, the exact
-     prewarm's remainder; 8 inputs), convnet_wide (48, 64 and 128 channels,
-     per-channel PReLU, the amp ConvNet at T=1,024); the modes (K1f): the
+     prewarm's remainder; 8 inputs; each counted on its tile kernel, and
+     64 x 8, whose weights do not fit it, on its group kernel),
+     convnet_wide (48, 64 and 128 channels, per-channel PReLU, the amp
+     ConvNet at T=1,024); the modes (K1f): the
      flagship at T=64 under fast-tanh, at T=16 under a Tanh LUT (-5, 5, 512
      points), gated_bottleneck
      under a Sigmoid LUT, depthwise (SiLU) under a SiLU LUT, the amp ConvNet
@@ -70,7 +72,8 @@ Phases (any failure raises and exits non-zero):
      run exactly prewarm + 32 times and no other kernel at all (the LSTM's
      prewarm is 344 full blocks and one 34-sample remainder step;
      flagship_wavefront's 96 launches must all be the wavefront kernel's,
-     large's 160 the wide kernel's), and the output must be finite and
+     large's 160 the wide kernel's, the lstm_wide.cu paths' 377 its tile
+     kernel's), and the output must be finite and
      within 2e-5 of the torch engine tier on the card (under the same mode);
      then `python -m neuralampmodelercore_tpu_torch.cli.benchmodel` on the
      flagship .nam with --engine --fast-tanh --batch 2048, and the tools'
@@ -81,8 +84,10 @@ Phases (any failure raises and exits non-zero):
   5. per-block times with CUDA events after warm-up, printed beside the
      card's name and power limit: the kernel (twice), its plain version, the
      torch engine tier, the bound, and for the LSTM one cuDNN LSTM call plus
-     the head product as the library yardstick (each line names the kernel
-     the wrapper picked: the register-tile or the wide one); the same for
+     the head product as the library yardstick, timed twice in turns with
+     the kernel (kernel, library, ..., library, kernel; each line names the
+     kernel the wrapper picked: the register-tile or the wide one, and the
+     LSTM tile kernel's S and SPT); the same for
      the fast-tanh
      flagship, the flagship under a Tanh LUT (-5, 5, 512 points), the
      wavefront flagship (B = 1024, 2048, 4096; its plain version is
@@ -90,13 +95,15 @@ Phases (any failure raises and exits non-zero):
      paths (lstm_48x2 with cuDNN's call); then a doubling sweep of the kernel
      for the real-time 48 kHz stream count of each model, of the flagship
      paths and of the five wide-kernel paths (at T=1,024 for
-     flagship_T1024: its deadline is 21.3 ms); and both LSTM kernels on 2 x 16 at B=2048 and 32768, in
-     turns (the measurement behind the LSTM wrapper's choice); K4 and each
+     flagship_T1024: its deadline is 21.3 ms); both LSTM sources on 2 x 16
+     at B=2048 and 32768, in turns (the measurement behind the LSTM
+     wrapper's choice), and lstm_wide.cu's group and tile kernels in turns
+     on 48 x 2 and 2 x 16 at B=2048; K4 and each
      K5/K6 variant: the kernel (twice, in turns with its plain version), its
      plain version and the library call, against a bound at the variant's
      rate (float32 FMAs, or the bf16 tensor cores);
   6. the agreement sweep (neuralampmodelercore_tpu_torch/tools/agreement.py):
-     every kernel config against the torch engine tier, 8 blocks at B=256
+     every kernel config (30) against the torch engine tier, 8 blocks at B=256
      and 512, T=64, within 2e-5 (the mode configs with their mode set around
      them); one JSON per config;
   7. a {"kernels": [...]} line (ten kernels; K5's numbers are the f32
@@ -345,12 +352,15 @@ def compare_wavefront_switch(nam, stack, make_nam, config, T, B, n_blocks, seed)
 
 
 def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, fast=False):
-    """The LSTM kernel the wrapper picks for (config, B) -- lstm.cu or
-    lstm_wide.cu, which must then run every block -- against its plain
-    version, state carried. Returns (the kernel's name, the error)."""
+    """The LSTM kernel the wrapper picks for (config, B) -- lstm.cu, or
+    lstm_wide.cu's tile kernel where the model fits its shared memory, else
+    its group kernel; the kernel must then run every block -- against its
+    plain version, state carried. Returns (the kernel's name, whether it was
+    the tile kernel, the error)."""
     model = nam.load_model(make_nam("LSTM", config, seed=seed), device="cuda")
     wide = lstm._is_wide(model.config, B)
-    wide_before = lstm.wide_launches
+    tile = wide and lstm._tile(model.config, B) is not None
+    wide_before, tile_before = lstm.wide_launches, lstm.tile_launches
     if fast:
         act.enable_fast_tanh()
     try:
@@ -372,13 +382,15 @@ def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, f
                 raise RuntimeError(f"{name}: non-finite kernel output at block {i}")
     finally:
         act.disable_fast_tanh()
-    if lstm.wide_launches - wide_before != (n_blocks if wide else 0):
-        raise RuntimeError(f"{name}: {lstm.wide_launches - wide_before} wide-kernel launches, "
-                           f"expected {n_blocks if wide else 0}")
+    launched = (lstm.wide_launches - wide_before, lstm.tile_launches - tile_before)
+    if launched != ((n_blocks if wide else 0), (n_blocks if tile else 0)):
+        raise RuntimeError(f"{name}: (wide, tile) kernel launches {launched}, expected "
+                           f"{(n_blocks if wide else 0, n_blocks if tile else 0)}")
     kernel = "lstm_wide_step" if wide else "lstm_step"
-    log(f"compare lstm {name} ({kernel}): T={T} B={B} blocks={n_blocks} "
+    which = f" tile S={ep['layout'].tile} SPT={ep['layout'].tile_spt}" if tile else " group" if wide else ""
+    log(f"compare lstm {name} ({kernel}{which}): T={T} B={B} blocks={n_blocks} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
-    return kernel, _check_err(name, err_y, err_s)
+    return kernel, tile, _check_err(name, err_y, err_s)
 
 
 def time_per_block(fn, n_iter=20, n_warm=3):
@@ -418,6 +430,7 @@ def reset_counts(modules):
     for m in modules.values():
         m.launches = m.wide_launches = 0
     modules["stack_step"].wf_launches = 0
+    modules["lstm_step"].tile_launches = 0
 
 
 def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=None, T=T_MAIN, B=B_MAIN):
@@ -454,6 +467,9 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
         f"remainder; launches {counts}, expected {expect} of {name}")
     if launched != expect or any(v for k, v in counts.items() if k != name):
         raise RuntimeError(f"{label}: launch counts {counts}, expected {expect} of {name} and no other")
+    tile_launched = modules["lstm_step"].tile_launches
+    if name == "lstm_wide_step" and tile_launched != expect:
+        raise RuntimeError(f"{label}: {tile_launched} of its {expect} launches ran lstm_wide.cu's tile kernel")
     y_fused = torch.stack(ys)
     if tuple(y_fused.shape) != (N_BLOCKS, B, T):
         raise RuntimeError(f"{label}: main path output shape {tuple(y_fused.shape)}")
@@ -474,7 +490,7 @@ def run_main_path(nam, modules, name, doc, expect_full, expect_rem, gen, path=No
     del engine, ref, state, rstate
     torch.cuda.empty_cache()
     return model, {"B": B, "T": T, "blocks": N_BLOCKS, "prewarm": [full, rem],
-                   "launches": launched, "max_abs_err_vs_torch_tier": err}
+                   "launches": launched, "tile_launches": tile_launched, "max_abs_err_vs_torch_tier": err}
 
 
 def cudnn_lstm(model, state_h, state_c):
@@ -518,6 +534,8 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
         lay = ep["layout"]
         kernel = "wide" if (getattr(lay, "wide", None) or getattr(lay, "wide_group", 0)
                             or getattr(lay, "wide_threads", 0)) else "register tile"
+        if getattr(lay, "tile", 0):
+            kernel = f"wide, tile S={lay.tile} SPT={lay.tile_spt}"
         x = randn((model.num_input_channels, T, Bt), gen)
         box = {"s": st}
 
@@ -541,22 +559,32 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
         def run_torch():
             _, tbox["s"] = teng.step(tbox["s"], x)
 
-        k1 = time_per_block(run_kernel)
-        p1 = time_per_block(run_plain, n_iter=3, n_warm=1)
-        t1 = time_per_block(run_torch, n_iter=3, n_warm=1)
-        k2 = time_per_block(run_kernel)
-        p2 = time_per_block(run_plain, n_iter=3, n_warm=1)
-        lib_ms = lib_err = None
+        lib_ms = lib_err = lib = None
         if library is not None:
             # From the initial state; the yardstick copies h0 and c0, so the
             # kernel's in-place update below leaves them alone.
             ep2, st2 = mod.prepare(cfg, model.params, T, Bt)
             lib = library(model, st2["h"], st2["c"])
             x_tbi = x.permute(1, 2, 0).contiguous()
-            lib_ms = time_per_block(lambda: lib(x_tbi), n_iter=5, n_warm=2)
             yk, _ = mod.step(cfg, T, ep2, st2, x)
             lib_err = (lib(x_tbi).permute(2, 0, 1) - yk).abs().max().item()
-            del ep2, st2, lib
+            del ep2, st2
+
+        def run_library():
+            lib(x_tbi)
+
+        # Kernel and library call in turns (kernel, library, ..., library,
+        # kernel), at the kernel's iteration count; the plain version twice.
+        k1 = time_per_block(run_kernel)
+        l1 = time_per_block(run_library) if lib else None
+        p1 = time_per_block(run_plain, n_iter=3, n_warm=1)
+        t1 = time_per_block(run_torch, n_iter=3, n_warm=1)
+        p2 = time_per_block(run_plain, n_iter=3, n_warm=1)
+        l2 = time_per_block(run_library) if lib else None
+        k2 = time_per_block(run_kernel)
+        if lib:
+            lib_ms = [l1, l2]
+        del lib
         w = mod.work(cfg, T, Bt)
         b_ms, b_by = bound(w)
         times[Bt] = {
@@ -564,7 +592,8 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
             "library_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": w["bytes"], "flops": w["flops"],
         }
-        lib_txt = f", library {lib_ms:.4f} ms (|lib - kernel| {lib_err:.2e})" if lib_ms is not None else ""
+        lib_txt = (f", library {lib_ms[0]:.4f}/{lib_ms[1]:.4f} ms (|lib - kernel| {lib_err:.2e})"
+                   if lib_ms is not None else "")
         log(f"time {label} B={Bt} T={T} ({kernel} kernel): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
             f"torch tier {t1:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
         del ep, st, lay, box, teng, tbox
@@ -572,10 +601,11 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
     return times
 
 
-def lstm_kernels_ab(lstm, model, gen, smi, batches=(2048, 32768)):
-    """Both LSTM kernels on the same model and input, in turns (lstm.cu,
+def lstm_kernels_ab(lstm, model, model_48x2, gen, smi, batches=(2048, 32768)):
+    """Both LSTM sources on the same model and input, in turns (lstm.cu,
     lstm_wide.cu, lstm_wide.cu, lstm.cu) per batch: the measurement behind
-    lstm._is_wide's choice."""
+    lstm._is_wide's choice; then lstm_wide.cu's group and tile kernels in
+    turns (group, tile, tile, group) on 48 x 2 and 2 x 16 at B=2048."""
     cfg, T, out = model.config, T_MAIN, {}
     for Bt in batches:
         x = randn((cfg.in_channels, T, Bt), gen)
@@ -589,6 +619,20 @@ def lstm_kernels_ab(lstm, model, gen, smi, batches=(2048, 32768)):
         log(f"lstm kernels B={Bt} T={T}: lstm.cu {times['lstm_step'][0]:.4f}/{times['lstm_step'][1]:.4f} ms, "
             f"lstm_wide.cu {times['lstm_wide_step'][0]:.4f}/{times['lstm_wide_step'][1]:.4f} ms; "
             f"the wrapper picks {out[Bt]['picked']}  [{smi}]")
+        torch.cuda.empty_cache()
+    for name, m in (("lstm_48x2", model_48x2), ("lstm_2x16", model)):
+        x = randn((m.config.in_channels, T, B_MAIN), gen)
+        times = {}
+        for tile in (False, None, None, False):
+            ep, st = lstm.prepare(m.config, m.params, T, B_MAIN, wide=True, tile=tile)
+            times.setdefault("group" if tile is False else "tile", []).append(
+                time_per_block(lambda: lstm.step(m.config, T, ep, st, x)))
+            if tile is None:
+                lay = ep["layout"]
+            del ep, st
+        out[f"{name}_group_vs_tile"] = {**times, "tile": [lay.tile, lay.tile_spt]}
+        log(f"lstm_wide.cu kernels {name} B={B_MAIN} T={T}: group {times['group'][0]:.4f}/{times['group'][1]:.4f} ms, "
+            f"tile (S={lay.tile}, SPT={lay.tile_spt}) {times['tile'][0]:.4f}/{times['tile'][1]:.4f} ms  [{smi}]")
         torch.cuda.empty_cache()
     return out
 
@@ -897,15 +941,17 @@ def main() -> int:
           "activation": {"type": "PReLU", "negative_slopes": [0.1, 0.2, 0.3, 0.4]}}, 64, 2048, 6),
         ("convnet_wide_step", "amp_T1024_B2048", "amp T=1024", AMP_CONVNET, 1024, 2048, 4),
     ]
-    wide_lstm_cases = [  # (key, name, config, T, B, blocks)
-        ("48x2_T64_B1000", "48 x 2 ragged", LSTM_48X2, 64, 1000, 4),
-        ("48x2_T34_B2048", "48 x 2 T=34", LSTM_48X2, 34, 2048, 4),
-        ("64x1_T64_B1000", "64 x 1 ragged", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 64, 1000, 4),
-        ("64x1_T34_B2048", "64 x 1 T=34", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 34, 2048, 4),
-        ("8x5_T64_B1000", "8 x 5 ragged", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 64, 1000, 4),
-        ("8x5_T34_B2048", "8 x 5 T=34", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 34, 2048, 4),
+    wide_lstm_cases = [  # (key, name, config, T, B, blocks, on the tile kernel)
+        ("48x2_T64_B1000", "48 x 2 ragged", LSTM_48X2, 64, 1000, 4, True),
+        ("48x2_T34_B2048", "48 x 2 T=34", LSTM_48X2, 34, 2048, 4, True),
+        ("64x1_T64_B1000", "64 x 1 ragged", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 64, 1000, 4, True),
+        ("64x1_T34_B2048", "64 x 1 T=34", {"input_size": 1, "hidden_size": 64, "num_layers": 1}, 34, 2048, 4, True),
+        ("8x5_T64_B1000", "8 x 5 ragged", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 64, 1000, 4, True),
+        ("8x5_T34_B2048", "8 x 5 T=34", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 34, 2048, 4, True),
         ("in8_12x2_T64_B777", "8 inputs x 12 x 2",
-         {"input_size": 8, "in_channels": 8, "hidden_size": 12, "num_layers": 2}, 64, 777, 4),
+         {"input_size": 8, "in_channels": 8, "hidden_size": 12, "num_layers": 2}, 64, 777, 4, True),
+        # 992 KB of weights: beyond the tile kernel's shared memory.
+        ("64x8_T64_B512", "64 x 8", {"input_size": 1, "hidden_size": 64, "num_layers": 8}, 64, 512, 3, False),
     ]
     errs = {name: {} for name in libs}
     for kname, (arch, mod, cases) in ring_cases.items():
@@ -915,10 +961,10 @@ def main() -> int:
         arch, mod = ("ConvNet", convnet) if kname == "convnet_wide_step" else ("WaveNet", stack)
         errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, f"wide {name}", config, T, B, n, SEED + i,
                                                wide=True)
-    for i, (key, name, config, T, B, n) in enumerate(wide_lstm_cases):
-        kname, errs_key = compare_lstm(nam, lstm, act, make_nam, f"wide {name}", config, T, B, n, SEED + i)
-        if kname != "lstm_wide_step":
-            raise RuntimeError(f"wide {name}: ran {kname}, not the wide kernel")
+    for i, (key, name, config, T, B, n, expect_tile) in enumerate(wide_lstm_cases):
+        kname, tile, errs_key = compare_lstm(nam, lstm, act, make_nam, f"wide {name}", config, T, B, n, SEED + i)
+        if kname != "lstm_wide_step" or tile != expect_tile:
+            raise RuntimeError(f"wide {name}: ran {kname} (tile kernel: {tile}, expected {expect_tile})")
         errs[kname][key] = errs_key
     for i, (kname, key, name, config, T, B, n, fast, luts) in enumerate(mode_cases):
         arch, mod = ring_cases[kname][:2]
@@ -931,7 +977,7 @@ def main() -> int:
     errs["stack_wf_step"]["switch_T64_B2048"] = compare_wavefront_switch(
         nam, stack, make_nam, wavenet_preset("standard"), 64, 2048, 8, SEED)
     for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
-        kname, err = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
+        kname, _, err = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
         errs[kname][key] = err
     # The tools' kernels (K4-K6) at their tools' shapes.
     errs["proto_ring_step"] = {"n_0_1_2_3_5_7": compare_proto_ring(prk, SEED)}
@@ -1008,7 +1054,7 @@ def main() -> int:
         report["times"]["flagship_wavefront"] = time_model(
             nam, stack, "stack_wf_step", main_models["flagship_wavefront"], (1024, 2048, 4096), gen, smi,
             path="flagship_wavefront", plain="step_plain_wf")
-    report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], gen, smi)
+    report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], main_models["lstm_48x2"], gen, smi)
     report["tool_times"] = time_tools(prk, mbd, dot_operands, gen, smi)
     # lstm.cu's own path: the 2 x 16 timing at B=32768, where it serves.
     report["times"]["lstm_2x16_B32768"] = {32768: report["times"]["lstm_2x16"][32768]}
@@ -1046,7 +1092,8 @@ def main() -> int:
     def numbers(path):
         t = report["times"][path][main[path]["B"]]
         return {"launches": main[path]["launches"], "ms": min(t["kernel_ms"]), "plain_ms": min(t["plain_ms"]),
-                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": min(t["library_ms"]) if t["library_ms"] else None}
 
     # A kernel's numbers are those of its own main path: the wavefront kernel's
     # the flagship on it, each wide kernel's its first path in WIDE_PATHS.
@@ -1075,7 +1122,9 @@ def main() -> int:
         elif name == "stack_wide_step":
             entry["paths"] = {path: numbers(path) for path, (k, *_) in WIDE_PATHS.items() if k == name}
         elif name == "lstm_wide_step":
-            entry["paths"] = {path: numbers(path) for path in ("lstm_2x16", "lstm_48x2")}
+            # Both paths run its tile kernel: every launch is counted there too.
+            entry["paths"] = {path: {**numbers(path), "tile_launches": main[path]["tile_launches"]}
+                              for path in ("lstm_2x16", "lstm_48x2")}
         kernels.append(entry)
     # The tools' kernels: launches from their entry points' runs, the rest from phases 3 and 5.
     variant_names = {"dot_chain": [c[0] for c in mbd.cases() if c[2] is None],

@@ -19,20 +19,26 @@ Global fast-tanh mode is read at each launch and passed as a flag.
 
 What ``csrc/lstm.cu``'s registers cannot hold -- hidden sizes above 32,
 more than 4 layers, more than 4 input channels -- runs on
-``csrc/lstm_wide.cu`` (the wide kernel): the same step on the same state, a
-group of threads per stream, the weights packed input-major
-(``_pack_wide``); up to WIDE_MAX_HIDDEN units, WIDE_MAX_LAYERS layers and
-WIDE_MAX_IN input channels. Where both kernels run a model, ``_is_wide``
-picks by what it sees, as measured on an H100 (PERF.md): the wide kernel
-while the card holds every stream's group at once and the hidden size is
-above 8 (2 x 16 at B = 2,048: 0.25 ms against 1.11 ms), else lstm.cu,
+``csrc/lstm_wide.cu`` (the wide kernels): the same step on the same state,
+the weights packed input-major (``_pack_wide``); up to WIDE_MAX_HIDDEN
+units, WIDE_MAX_LAYERS layers and WIDE_MAX_IN input channels. Of its two
+kernels, the tile kernel (S streams a CTA, the weights in shared memory,
+SPT streams a thread; ``_tile`` picks S and SPT) runs every model whose
+weights and one tile fit the CTA's shared memory (``_tile_smem_bytes``),
+the group kernel (a group of threads a stream, the weights read from
+device memory) the rest, such as 64 x 8. Where lstm.cu and lstm_wide.cu
+both run a model, ``_is_wide`` picks by what it sees, as measured on an
+H100 (PERF.md): the wide kernel while the card holds every stream's group
+at once and the hidden size is above 8 (2 x 16 at B = 2,048: 0.25 ms
+against 1.11 ms), else lstm.cu,
 whose one thread per stream wins once the streams come in waves (2 x 16 at
 B = 32,768: 1.21 ms against 1.70 ms) and at the smallest hidden sizes.
 
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain``, the same step on the same layout in plain torch.
-``launches`` counts launches of both kernels (``wide_launches`` those of the
-wide kernel) and nothing else.
+``launches`` counts launches of every kernel (``wide_launches`` those of
+csrc/lstm_wide.cu, ``tile_launches`` those of its tile kernel) and nothing
+else.
 """
 
 from __future__ import annotations
@@ -48,10 +54,12 @@ from .. import activations as act
 from . import _build
 from .stack import SMEM_LIMIT, _np
 
-#: Kernel launches so far (both kernels); ``step_plain`` does not count.
+#: Kernel launches so far (every kernel); ``step_plain`` does not count.
 launches = 0
-#: Of those, launches of the wide kernel (csrc/lstm_wide.cu).
+#: Of those, launches of the wide kernels (csrc/lstm_wide.cu).
 wide_launches = 0
+#: Of those, launches of the tile kernel (lstm_wide.cu lstm_tile_kernel).
+tile_launches = 0
 
 MAX_IN = 4  # input channels, MAX_IN in lstm.cu
 HP_TILES = (4, 8, 16, 32)  # padded hidden widths with a kernel instance
@@ -68,6 +76,21 @@ WIDE_THREADS = 128  # MAX_THREADS in lstm_wide.cu
 #: Threads of wide-kernel groups the card holds at once (132 SMs x 2,048,
 #: rounded down): up to this many, the wide kernel's streams run in one wave.
 WIDE_RESIDENT = 1 << 18
+# The tile kernel (lstm_wide.cu lstm_tile_kernel) and the H100 SXM it is
+# sized for: 132 SMs of 228 KB of shared memory, 2,048 threads, 32 CTAs and
+# 64K registers each.
+TILE_SPT = (1, 2, 4)  # streams a thread: the kernel's template instances
+TILE_MAX_THREADS = 512  # TILE_MAX_THREADS in lstm_wide.cu
+#: Registers a thread of each instance holds (ptxas -v, rounded up to 8; chip_smoke prints them).
+TILE_REGS = {1: 40, 2: 64, 4: 64}
+SMS, SM_SMEM, SM_THREADS, SM_CTAS, SM_REGS = 132, 233472, 2048, 32, 65536
+#: Threads the batch must give each SM at a tile's SPT (8 warps): below it,
+#: the SM's sub-partitions wait on shared-memory latency (PERF.md).
+TILE_SM_THREADS = 256
+TILE_MIN_THREADS = 128  # threads of a tile's CTA at the least (4 warps), where H allows
+#: Threads of a tile's CTA at the most where the batch takes several waves:
+#: 12 warps, as many as the sweeps show an SM gains from (PERF.md).
+TILE_WAVE_THREADS = 384
 
 
 def _pad_hidden(H: int) -> int:
@@ -130,8 +153,53 @@ def _is_wide(cfg, batch: int) -> bool:
 
 
 def _group(H: int) -> int:
-    """Threads per stream of the wide kernel: 8, 16 or 32, as the hidden size needs."""
+    """Threads per stream of the group kernel: 8, 16 or 32, as the hidden size needs."""
     return 8 if H <= 8 else 16 if H <= 16 else 32
+
+
+def _n_wide(cfg) -> int:
+    """Floats of ``_pack_wide``'s weights."""
+    H = cfg.hidden_size
+    rows = sum(1 + (cfg.in_channels if li == 0 else H) + H for li in range(cfg.num_layers))
+    return 4 * H * rows + cfg.out_channels * (H + 1)
+
+
+def _tile_smem_bytes(cfg, S: int) -> int:
+    """Shared memory of a tile kernel CTA of S streams: the packed weights
+    (rounded up to a float4), then h (2, L, H, S), c (L, H, S) and the input
+    (2, Cin, S), as lstm_wide.cu lays them out."""
+    H, L = cfg.hidden_size, cfg.num_layers
+    return 4 * (-(-_n_wide(cfg) // 4) * 4 + S * (3 * L * H + 2 * cfg.in_channels))
+
+
+def _tile_ctas_per_sm(cfg, S: int, spt: int) -> int:
+    """CTAs of S streams, spt a thread, that one SM holds at once."""
+    threads = -(-cfg.hidden_size * S // spt // 32) * 32
+    return min(SM_SMEM // (_tile_smem_bytes(cfg, S) + 1024), SM_THREADS // threads, SM_CTAS,
+               SM_REGS // (TILE_REGS[spt] * threads))
+
+
+def _tile(cfg, batch: int) -> Optional[tuple]:
+    """(S, SPT) of the tile kernel for this model and batch, or None where
+    its weights and the smallest tile do not fit the CTA's shared memory.
+    SPT: the largest that still gives every SM TILE_SM_THREADS threads of
+    the batch's H * batch / SPT (1 if none does); more streams a thread
+    read fewer weight bytes a FMA, fewer threads hide less latency. S: the
+    smallest multiple of SPT whose CTA has TILE_MIN_THREADS threads and whose
+    CTAs all run in one wave; where no tile within TILE_MAX_THREADS threads
+    and the shared memory does, the largest of at most TILE_WAVE_THREADS
+    threads. (Fitted to a sweep of every tile on an H100:
+    tools/lstm_tiles.py, PERF.md.)"""
+    H = cfg.hidden_size
+    spt = next((p for p in TILE_SPT[::-1] if H * batch // p >= TILE_SM_THREADS * SMS), 1)
+    sizes = [S for S in range(spt, spt * (TILE_MAX_THREADS // H) + 1, spt) if _tile_smem_bytes(cfg, S) <= SMEM_LIMIT]
+    if not sizes:
+        return None
+    for S in sizes:
+        if (H * S // spt >= min(TILE_MIN_THREADS, H * sizes[-1] // spt)
+                and -(-batch // S) <= SMS * _tile_ctas_per_sm(cfg, S, spt)):
+            return S, spt
+    return max([S for S in sizes if H * S // spt <= TILE_WAVE_THREADS] or sizes[:1]), spt
 
 
 # =============================================================================
@@ -147,7 +215,9 @@ class Layout:
     Cin: int
     O: int
     n_weights: int
-    wide_group: int = 0  # threads per stream of the wide kernel; 0: csrc/lstm.cu runs the model
+    wide_group: int = 0  # threads per stream of the group kernel; 0: csrc/lstm.cu runs the model
+    tile: int = 0  # streams per CTA of the tile kernel (S); 0: not the tile kernel
+    tile_spt: int = 0  # streams per thread of the tile kernel (SPT)
 
 
 def _pack(cfg, params, HP: int) -> np.ndarray:
@@ -190,9 +260,11 @@ def _pack_wide(cfg, params) -> np.ndarray:
     return np.concatenate(parts + [_np(params["head_w"]).T.reshape(-1), _np(params["head_b"])])
 
 
-def prepare(cfg, params, T: int, batch: int, wide: Optional[bool] = None):
+def prepare(cfg, params, T: int, batch: int, wide: Optional[bool] = None, tile=None):
     """Packed weights and the broadcast initial state on the params' device.
-    ``wide`` picks the kernel (for measurements; default: ``_is_wide``)."""
+    ``wide`` picks the source and, within lstm_wide.cu, ``tile`` the kernel:
+    False the group kernel, (S, SPT) that tile (for measurements and tests;
+    default: ``_is_wide``, then ``_tile``)."""
     reason = supports(cfg, T, batch)
     if reason is not None:
         raise ValueError(f"fused lstm kernel does not support this config: {reason}")
@@ -203,8 +275,15 @@ def prepare(cfg, params, T: int, batch: int, wide: Optional[bool] = None):
     device = params["head_b"].device
     if wide:
         flat = _pack_wide(cfg, params)
+        if tile is None:
+            tile = _tile(cfg, batch) or False
+        elif tile and (tile[1] not in TILE_SPT or tile[0] % tile[1]
+                       or cfg.hidden_size * tile[0] // tile[1] > TILE_MAX_THREADS
+                       or _tile_smem_bytes(cfg, tile[0]) > SMEM_LIMIT):
+            raise ValueError(f"the tile kernel cannot run tile {tile} of this config")
         layout = Layout(L=cfg.num_layers, H=cfg.hidden_size, HP=cfg.hidden_size, Cin=cfg.in_channels,
-                        O=cfg.out_channels, n_weights=flat.size, wide_group=_group(cfg.hidden_size))
+                        O=cfg.out_channels, n_weights=flat.size, wide_group=_group(cfg.hidden_size),
+                        tile=tile[0] if tile else 0, tile_spt=tile[1] if tile else 0)
     else:
         HP = _pad_hidden(cfg.hidden_size)
         flat = _pack(cfg, params, HP)
@@ -292,17 +371,19 @@ LIB = _build.Library("lstm.cu", _bind)
 def _bind_wide(lib: ctypes.CDLL) -> None:
     lib.nam_lstm_wide_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     lib.nam_lstm_wide_step.restype = ctypes.c_int
+    lib.nam_lstm_tile_step.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.nam_lstm_tile_step.restype = ctypes.c_int
 
 
-#: csrc/lstm_wide.cu, the wide kernel: its own source, so it builds beside lstm.cu.
+#: csrc/lstm_wide.cu, the wide kernels: its own source, so it builds beside lstm.cu.
 WIDE_LIB = _build.Library("lstm_wide.cu", _bind_wide)
 
 
 def launch(layout: Layout, weights: torch.Tensor, h: torch.Tensor, c: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel the layout names (csrc/lstm.cu, or csrc/lstm_wide.cu
-    for a wide layout) on the current stream: x (Cin, T', B) -> y (O, T', B);
-    h and c (L, H, B) in place."""
-    global launches, wide_launches
+    """Launch the kernel the layout names (csrc/lstm.cu, or csrc/lstm_wide.cu's
+    tile or group kernel for a wide layout) on the current stream: x (Cin,
+    T', B) -> y (O, T', B); h and c (L, H, B) in place."""
+    global launches, wide_launches, tile_launches
     for name, t in (("x", x), ("weights", weights), ("h", h), ("c", c)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
@@ -320,11 +401,18 @@ def launch(layout: Layout, weights: torch.Tensor, h: torch.Tensor, c: torch.Tens
     y = torch.empty((layout.O, T, B), device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (x.data_ptr(), y.data_ptr(), h.data_ptr(), c.data_ptr(), weights.data_ptr())
-    if layout.wide_group:
+    if layout.tile:
+        lib = WIDE_LIB.load()
+        err = lib.nam_lstm_tile_step(*ptrs, T, B, layout.Cin, layout.H, layout.L, layout.O, layout.n_weights,
+                                     layout.tile, layout.tile_spt, int(act.using_fast_tanh), stream)
+        WIDE_LIB.check(err, "lstm tile kernel")
+        wide_launches += 1
+        tile_launches += 1
+    elif layout.wide_group:
         lib = WIDE_LIB.load()
         err = lib.nam_lstm_wide_step(*ptrs, T, B, layout.Cin, layout.H, layout.L, layout.O, layout.wide_group,
                                      WIDE_THREADS, int(act.using_fast_tanh), stream)
-        WIDE_LIB.check(err, "lstm wide kernel")
+        WIDE_LIB.check(err, "lstm group kernel")
         wide_launches += 1
     else:
         lib = LIB.load()

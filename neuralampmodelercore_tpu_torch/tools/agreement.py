@@ -10,7 +10,8 @@ the JAX package's tier-against-tier tolerance). It writes
 one JSON per config into ``--out``. Its configs: those of
 ``AGREEMENT_r05.json`` that the repository builds without the reference's
 example models (post_head, depthwise, lstm_2x8, convnet, and the flagship,
-whose shape is ``wavenet_a1_standard``'s), every WaveNet feature of the
+whose shape is ``wavenet_a1_standard``'s), the LSTMs of ``chip_smoke.py``'s
+main paths (2 x 16 and 48 x 2), every WaveNet feature of the
 stack kernel, the two feature main paths of ``chip_smoke.py`` included, the
 reference's LARGE preset and a gated MEDIUM (both on the wide kernel,
 ``csrc/stack_wide.cu``), and the flagship and the ConvNet under the
@@ -146,6 +147,10 @@ def configs() -> Dict[str, Tuple[str, dict, int]]:
             "head": None,
         }, 12),
         "lstm_2x8": ("LSTM", {"num_layers": 2, "input_size": 1, "hidden_size": 8, "out_channels": 1}, 13),
+        # chip_smoke.py's two LSTM main paths (tools/generate.py's LSTM and
+        # 48 x 2), both on csrc/lstm_wide.cu's tile kernel at B = 2,048.
+        "lstm_2x16": ("LSTM", {"num_layers": 2, "input_size": 1, "hidden_size": 16, "out_channels": 1}, 14),
+        "lstm_48x2": ("LSTM", {"num_layers": 2, "input_size": 1, "hidden_size": 48, "out_channels": 1}, 15),
         "convnet": ("ConvNet", {"channels": 16, "dilations": DILATIONS, "batchnorm": True, "activation": "Tanh"}, 7),
         # The stack kernel's features (K1b-K1e).
         "gated_bottleneck": ("WaveNet", {"layers": [

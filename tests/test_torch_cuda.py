@@ -1,6 +1,7 @@
 """Tests that need the CUDA card: each kernel (stack, stack_wf, stack_wide,
-lstm, lstm_wide, convnet, convnet_wide, and the tools' proto_ring and
-dot_chain) against its plain version on the same CUDA inputs (for the stack
+lstm, lstm_wide's tile and group kernels, convnet, convnet_wide, and the
+tools' proto_ring and dot_chain) against its plain version on the same CUDA
+inputs (the LSTM tile kernel also against the group kernel, exactly; for the stack
 kernel, every feature: gating, bottleneck, head1x1, FiLM sites, k>1 head
 rechannel, post-stack head, condition chains and the LSTM pre-pass; the
 fast-tanh and LUT modes in the stack kernel and in K3; the wavefront kernel
@@ -423,6 +424,78 @@ def test_wide_kernels_match_plain_versions(name):
         for k, v in ref.items():
             torch.testing.assert_close(sk[k], v, rtol=0, atol=ATOL)
     assert mod.wide_launches == before + 4
+
+
+# The tile kernel of csrc/lstm_wide.cu: (config, T, B, fast-tanh mode).
+LSTM_48X2 = {"input_size": 1, "hidden_size": 48, "num_layers": 2}
+TILE_CASES = {
+    "48x2_T64_B2048": (LSTM_48X2, 64, 2048, False),
+    "48x2_T34_B2048": (LSTM_48X2, 34, 2048, False),  # the exact prewarm's remainder
+    "48x2_T1_B2048": (LSTM_48X2, 1, 2048, False),
+    "48x2_T64_B1000": (LSTM_48X2, 64, 1000, False),  # a ragged last tile
+    "2x16_T64_B2048": (LSTM_2X16, 64, 2048, False),
+    "2x16_T64_B8192": (LSTM_2X16, 64, 8192, False),
+    "32x4_T64_B2048": ({"input_size": 1, "hidden_size": 32, "num_layers": 4}, 64, 2048, False),
+    "64x1_T64_B2048": ({"input_size": 1, "hidden_size": 64, "num_layers": 1}, 64, 2048, False),
+    "in2_48_T64_B2048": ({"input_size": 2, "in_channels": 2, "hidden_size": 48, "num_layers": 1}, 64, 2048, False),
+    "48x2_fast_tanh_T64_B2048": (LSTM_48X2, 64, 2048, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_lstm_tile_kernel_matches_plain_and_group_kernel(name):
+    """The tile kernel the wrapper picks against step_plain (2e-5) and against
+    the group kernel (exactly: the same sums in the same order, each product
+    fused into its sum), state carried over 4 blocks; one tile-kernel launch
+    a block."""
+    _cuda_or_skip()
+    config, T, B, fast = TILE_CASES[name]
+    tm = tnam.load_model(make_nam("LSTM", config, seed=2))
+    ep, sk = tlstm.prepare(tm.config, tm.params, T, B)
+    assert ep["layout"].tile > 0, "the wrapper picks the tile kernel"
+    epg, sg = tlstm.prepare(tm.config, tm.params, T, B, tile=False)
+    assert epg["layout"].tile == 0 and epg["layout"].wide_group > 0
+    h, c = sk["h"].clone(), sk["c"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    if fast:
+        tact.enable_fast_tanh()
+    try:
+        for _ in range(4):
+            x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+            before = (tlstm.tile_launches, tlstm.wide_launches)
+            yk, sk = tlstm.step(tm.config, T, ep, sk, x)
+            assert (tlstm.tile_launches, tlstm.wide_launches) == (before[0] + 1, before[1] + 1)
+            yg, sg = tlstm.step(tm.config, T, epg, sg, x)
+            assert tlstm.tile_launches == before[0] + 1
+            yp = tlstm.step_plain(ep["layout"], ep["weights"], h, c, x)
+            torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["h"], h, rtol=0, atol=ATOL)
+            torch.testing.assert_close(sk["c"], c, rtol=0, atol=ATOL)
+            assert torch.equal(yk, yg) and torch.equal(sk["h"], sg["h"]) and torch.equal(sk["c"], sg["c"])
+    finally:
+        tact.disable_fast_tanh()
+
+
+@pytest.mark.cuda
+def test_lstm_beyond_the_tile_runs_the_group_kernel():
+    """64 x 8's weights (992 KB) do not fit a CTA's shared memory: the group
+    kernel runs it, against step_plain, state carried."""
+    _cuda_or_skip()
+    tm = tnam.load_model(make_nam("LSTM", {"input_size": 1, "hidden_size": 64, "num_layers": 8}, seed=2))
+    ep, sk = tlstm.prepare(tm.config, tm.params, 64, 512)
+    assert ep["layout"].tile == 0 and ep["layout"].wide_group > 0
+    h, c = sk["h"].clone(), sk["c"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    before = (tlstm.tile_launches, tlstm.wide_launches)
+    for _ in range(4):
+        x = torch.randn((1, 64, 512), generator=gen, device="cuda") * 0.3
+        yk, sk = tlstm.step(tm.config, 64, ep, sk, x)
+        yp = tlstm.step_plain(ep["layout"], ep["weights"], h, c, x)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+        torch.testing.assert_close(sk["h"], h, rtol=0, atol=ATOL)
+        torch.testing.assert_close(sk["c"], c, rtol=0, atol=ATOL)
+    assert (tlstm.tile_launches, tlstm.wide_launches) == (before[0], before[1] + 4)
 
 
 @pytest.mark.cuda

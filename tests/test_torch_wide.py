@@ -19,8 +19,11 @@ JAX package's XLA engine tier over several blocks with state carried,
 within 2e-5 absolute (the JAX package's tier-against-tier tolerance). The
 gate-parity grid holds the port's gate to the JAX gates at full depth and
 B = 2,048; the refusal tests pin what stays refused and that each reason
-names its limit. The CUDA kernels themselves are held against their plain
-versions on the card by chip_smoke.py (phase 3)."""
+names its limit. Within csrc/lstm_wide.cu, the choice between its tile and
+group kernels is pinned: the shared-memory byte count, which models the
+tile kernel takes, and its tile shape and grid at B = 2,048 and 8,192. The
+CUDA kernels themselves are held against their plain versions on the card
+by chip_smoke.py (phase 3) and tests/test_torch_cuda.py."""
 
 import copy
 
@@ -286,3 +289,77 @@ def test_supports_refuses_beyond_the_wide_kernels(name):
         tnam.StreamEngine(tm, batch=4, block_size=T, kernel="fused")
     if "T2048" in name:
         assert jmod.supports(jnam.load_model(doc).config, T, 2048) is not None
+
+
+# csrc/lstm_wide.cu's two kernels: the tile kernel (the weights and a tile of
+# S streams in a CTA's shared memory) runs what fits, the group kernel the rest.
+TILE_FITS = {"2x16": _lstm(16, 2), "48x2": _lstm(48, 2), "64x1": _lstm(64, 1), "32x4": _lstm(32, 4),
+             "8x5": _lstm(8, 5), "in2_48": _lstm(48, 1, inputs=2)}
+
+
+def _lstm_cfg(config):
+    return tnam.load_model(make_nam("LSTM", config, seed=0), device="cpu").config
+
+
+def test_lstm_tile_shared_memory_bytes():
+    """48 x 2: layer 0 is 50 x 48 float4s, layer 1 97 x 48, the head 49
+    floats: 113,092 bytes, rounded up to a float4, then a tile's h (2, L, H,
+    S), c (L, H, S) and input (2, Cin, S)."""
+    cfg = _lstm_cfg(_lstm(48, 2))
+    assert 4 * tlstm._n_wide(cfg) == 50 * 48 * 16 + 97 * 48 * 16 + 49 * 4 == 113092
+    assert tlstm._tile_smem_bytes(cfg, 16) == 113104 + 16 * (3 * 2 * 48 + 2 * 1) * 4 == 131664
+    # 2 inputs x 16 x 2: 3,345 floats of weights (19 + 33 rows of 16 float4s,
+    # the head 17) rounded up to 3,348, and S = 8.
+    cfg = _lstm_cfg(_lstm(16, 2, inputs=2))
+    assert tlstm._tile_smem_bytes(cfg, 8) == 4 * 3348 + 4 * 8 * (3 * 2 * 16 + 2 * 2) == 16592
+    # 64 x 8: 992,516 bytes of weights, beyond any CTA's shared memory.
+    cfg = _lstm_cfg(_lstm(64, 8))
+    assert 4 * tlstm._n_wide(cfg) == 66 * 64 * 16 + 7 * 129 * 64 * 16 + 65 * 4 == 992516
+    assert tlstm._tile(cfg, 2048) is None
+
+
+@pytest.mark.parametrize("name", sorted(TILE_FITS))
+def test_lstm_tile_kernel_picked_where_it_fits(name):
+    """Every LSTM the wrapper sends to lstm_wide.cu at B = 2,048 whose
+    weights and tile fit runs the tile kernel (the group kernel on request)."""
+    cfg = _lstm_cfg(TILE_FITS[name])
+    tm = tnam.load_model(make_nam("LSTM", TILE_FITS[name], seed=0), device="cpu")
+    assert tlstm._is_wide(cfg, 2048)
+    ep, _ = tlstm.prepare(cfg, tm.params, 64, 2048)
+    S, spt = ep["layout"].tile, ep["layout"].tile_spt
+    assert (S, spt) == tlstm._tile(cfg, 2048) and S % spt == 0 and ep["layout"].wide_group > 0
+    assert cfg.hidden_size * S // spt <= tlstm.TILE_MAX_THREADS
+    assert tlstm._tile_smem_bytes(cfg, S) <= tlstm.SMEM_LIMIT
+    group = tlstm.prepare(cfg, tm.params, 64, 2048, tile=False)[0]["layout"]
+    assert (group.tile, group.wide_group) == (0, ep["layout"].wide_group)
+
+
+def test_lstm_group_kernel_runs_what_the_tile_cannot_hold():
+    tm = tnam.load_model(make_nam("LSTM", _lstm(64, 8), seed=0), device="cpu")
+    layout = tlstm.prepare(tm.config, tm.params, 64, 2048)[0]["layout"]
+    assert layout.tile == 0 and layout.wide_group == 32
+    with pytest.raises(ValueError, match="tile kernel cannot run"):
+        tlstm.prepare(tm.config, tm.params, 64, 2048, tile=(1, 1))
+
+
+@pytest.mark.parametrize("name,batch,tile,grid", [
+    ("48x2", 2048, (16, 2), 128), ("48x2", 8192, (32, 4), 256),
+    ("2x16", 2048, (8, 1), 256), ("2x16", 8192, (16, 2), 512),
+])
+def test_lstm_tile_shape_and_grid(name, batch, tile, grid):
+    """S and SPT: the largest SPT that leaves every SM 256 threads of the
+    batch, then the smallest S with 128 threads a CTA whose CTAs run in one
+    wave (48 x 2 holds one CTA an SM: 131,664 bytes at S = 16); at 48 x 2,
+    B = 8,192 none does, and the largest tile of 384 threads runs in two."""
+    cfg = _lstm_cfg(TILE_FITS[name])
+    assert tlstm._tile(cfg, batch) == tile
+    assert -(-batch // tile[0]) == grid
+
+
+def test_lstm_tiles_tool_needs_a_card(monkeypatch, capsys):
+    """The tile sweep measures the card only: without one it exits 2 and prints no result."""
+    from neuralampmodelercore_tpu_torch.tools import lstm_tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert lstm_tiles.main(["--config", "lstm_48x2", "--batch", "2048"]) == 2
+    assert "needs a CUDA card" in capsys.readouterr().err

@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--out report.json]
 
-It drives the port's thirteen main paths, each through load_model(.nam) ->
+It drives the port's fourteen main paths, each through load_model(.nam) ->
 StreamEngine(kernel="auto") -> its hand-written CUDA kernel: the WaveNet
-flagship, the LSTM (2 x 16 at B=2048 on lstm_wide.cu, and at B=32768 on
-lstm.cu, which serves it once the streams come in waves) and the ConvNet;
+flagship, the LSTM (2 x 16 at B=2048 and at B=32768, both on lstm_wide.cu's
+tile kernel, and at B=65536 on lstm.cu, which serves it once the batch is
+that large) and the ConvNet;
 two WaveNets on the stack kernel's
 features: flagship_cond (the flagship with a WaveNet condition DSP, two nets
 in one launch) and flagship_max (gating, blending, bottleneck, head1x1, FiLM
@@ -37,9 +38,12 @@ Phases (any failure raises and exits non-zero):
      head, a depth-2 WaveNet condition chain, an LSTM condition pre-pass
      (K2 and the stack kernel must each launch once per block), per-channel
      PReLU, flagship_max), lstm, each case on the kernel the wrapper picks
-     for its batch (1 x 3, 2 x 16 at T=64, T=34 and a ragged B=1000, H=5
-     with two outputs, fast-tanh mode; 2 x 16 at B=32768 at T=64, T=34 and
-     under fast-tanh), convnet (the amp ConvNet
+     for its batch, which must be the one the case names (on the tile
+     kernel: 1 x 3, 2 x 16 at T=64, T=34 and a ragged B=1000, H=5 with two
+     outputs, 2 x 8, fast-tanh mode, 2 x 16 at B=32768 at T=64, T=34 and
+     under fast-tanh; on lstm.cu: 1 x 3 at B=32768, 2 x 16 at B=65536 at
+     T=64, T=34 and under fast-tanh, 2 x 8 under fast-tanh and H=5 with two
+     outputs at a ragged B=66000), convnet (the amp ConvNet
      at T=64 and at T=16 where deep dilations wrap the rings, no batchnorm,
      groups=2, two in/out channels, a non-Tanh activation, dilations that
      are not multiples of T); the wide kernels, each run counted on the wide
@@ -65,7 +69,7 @@ Phases (any failure raises and exits non-zero):
      launch per chain: f32 within 2e-5 x max|output| (K5, 20 steps) or 2e-5
      (K6), bf16 within 2e-2 x max|output|;
   4. each main path end to end at B=2048, T=64 (flagship_T1024: T=1,024;
-     lstm_2x16_B32768: B=32768):
+     lstm_2x16_B32768 and lstm_2x16_B65536: B=32768 and 65536):
      load_model on the card, StreamEngine with kernel="auto" (must pick
      "fused"), reset with prewarm, 32 blocks. Every launch counter is set to
      0 just before the path and read just after; the path's kernel must have
@@ -73,7 +77,7 @@ Phases (any failure raises and exits non-zero):
      prewarm is 344 full blocks and one 34-sample remainder step;
      flagship_wavefront's 96 launches must all be the wavefront kernel's,
      large's 160 the wide kernel's, the lstm_wide.cu paths' 377 its tile
-     kernel's), and the output must be finite and
+     kernel's, lstm_2x16_B65536's 377 lstm.cu's), and the output must be finite and
      within 2e-5 of the torch engine tier on the card (under the same mode);
      then `python -m neuralampmodelercore_tpu_torch.cli.benchmodel` on the
      flagship .nam with --engine --fast-tanh --batch 2048, and the tools'
@@ -96,8 +100,9 @@ Phases (any failure raises and exits non-zero):
      for the real-time 48 kHz stream count of each model, of the flagship
      paths and of the five wide-kernel paths (at T=1,024 for
      flagship_T1024: its deadline is 21.3 ms); both LSTM sources on 2 x 16
-     at B=2048 and 32768, in turns (the measurement behind the LSTM
-     wrapper's choice), and lstm_wide.cu's group and tile kernels in turns
+     and 2 x 8 at B=2048, 32768 and 65536, in turns (points of the sweep
+     behind the LSTM wrapper's choice, tools/lstm_tiles.py --sources), and
+     lstm_wide.cu's group and tile kernels in turns
      on 48 x 2 and 2 x 16 at B=2048; K4 and each
      K5/K6 variant: the kernel (twice, in turns with its plain version), its
      plain version and the library call, against a bound at the variant's
@@ -135,6 +140,7 @@ SEED = 1234
 B_MAIN, T_MAIN, N_BLOCKS = 2048, 64, 32
 
 LSTM_MAIN = {"input_size": 1, "hidden_size": 16, "num_layers": 2}  # tools/generate.py's LSTM
+LSTM_2X8 = {"input_size": 1, "hidden_size": 8, "num_layers": 2}
 AMP_CONVNET = {  # tests/test_pallas_convnet.py:63-70 of the JAX package
     "channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512],
     "batchnorm": True, "activation": "Tanh",
@@ -356,7 +362,7 @@ def compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n_blocks, seed, f
     lstm_wide.cu's tile kernel where the model fits its shared memory, else
     its group kernel; the kernel must then run every block -- against its
     plain version, state carried. Returns (the kernel's name, whether it was
-    the tile kernel, the error)."""
+    the tile kernel, the error); the caller checks the kernel."""
     model = nam.load_model(make_nam("LSTM", config, seed=seed), device="cuda")
     wide = lstm._is_wide(model.config, B)
     tile = wide and lstm._tile(model.config, B) is not None
@@ -601,25 +607,29 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
     return times
 
 
-def lstm_kernels_ab(lstm, model, model_48x2, gen, smi, batches=(2048, 32768)):
+def lstm_kernels_ab(lstm, model, model_2x8, model_48x2, gen, smi, batches=(2048, 32768, 65536)):
     """Both LSTM sources on the same model and input, in turns (lstm.cu,
-    lstm_wide.cu, lstm_wide.cu, lstm.cu) per batch: the measurement behind
-    lstm._is_wide's choice; then lstm_wide.cu's group and tile kernels in
-    turns (group, tile, tile, group) on 48 x 2 and 2 x 16 at B=2048."""
-    cfg, T, out = model.config, T_MAIN, {}
-    for Bt in batches:
-        x = randn((cfg.in_channels, T, Bt), gen)
-        times = {}
-        for wide in (False, True, True, False):
-            ep, st = lstm.prepare(cfg, model.params, T, Bt, wide=wide)
-            times.setdefault("lstm_wide_step" if wide else "lstm_step", []).append(
-                time_per_block(lambda: lstm.step(cfg, T, ep, st, x)))
-            del ep, st
-        out[Bt] = {**times, "picked": "lstm_wide_step" if lstm._is_wide(cfg, Bt) else "lstm_step"}
-        log(f"lstm kernels B={Bt} T={T}: lstm.cu {times['lstm_step'][0]:.4f}/{times['lstm_step'][1]:.4f} ms, "
-            f"lstm_wide.cu {times['lstm_wide_step'][0]:.4f}/{times['lstm_wide_step'][1]:.4f} ms; "
-            f"the wrapper picks {out[Bt]['picked']}  [{smi}]")
-        torch.cuda.empty_cache()
+    lstm_wide.cu, lstm_wide.cu, lstm.cu) per batch, on 2 x 16 and 2 x 8:
+    points of the sweep behind lstm._is_wide's choice (tools/lstm_tiles.py
+    --sources), each with the source the wrapper picks; then lstm_wide.cu's group
+    and tile kernels in turns (group, tile, tile, group) on 48 x 2 and 2 x 16
+    at B=2048."""
+    T, out = T_MAIN, {}
+    for name, m in (("lstm_2x16", model), ("lstm_2x8", model_2x8)):
+        cfg, out[name] = m.config, {}
+        for Bt in batches:
+            x = randn((cfg.in_channels, T, Bt), gen)
+            times = {}
+            for wide in (False, True, True, False):
+                ep, st = lstm.prepare(cfg, m.params, T, Bt, wide=wide)
+                times.setdefault("lstm_wide_step" if wide else "lstm_step", []).append(
+                    time_per_block(lambda: lstm.step(cfg, T, ep, st, x)))
+                del ep, st
+            out[name][Bt] = {**times, "picked": "lstm_wide_step" if lstm._is_wide(cfg, Bt) else "lstm_step"}
+            log(f"lstm kernels {name} B={Bt} T={T}: lstm.cu {times['lstm_step'][0]:.4f}/"
+                f"{times['lstm_step'][1]:.4f} ms, lstm_wide.cu {times['lstm_wide_step'][0]:.4f}/"
+                f"{times['lstm_wide_step'][1]:.4f} ms; the wrapper picks {out[name][Bt]['picked']}  [{smi}]")
+            torch.cuda.empty_cache()
     for name, m in (("lstm_48x2", model_48x2), ("lstm_2x16", model)):
         x = randn((m.config.in_channels, T, B_MAIN), gen)
         times = {}
@@ -713,7 +723,9 @@ def compare_dot_chain(mbd, operands):
     """K5 and K6 in every variant against their plain versions at the tool's
     shapes and scale, one launch per chain. f32: 2e-5 x max|output| for the
     20-step chain (its output decays to about 2e-4), 2e-5 for K6 (order 1);
-    bf16: 2e-2 x max|output|. Returns the error per variant."""
+    bf16: 2e-2 x max|output|. For f32 the CUDA runtime's CTAs an SM must be
+    the ones microbench_dots.f32_ctas_per_sm computes. Returns the error per
+    variant."""
     errs = {}
     for name, key, G, d in mbd.cases():
         x, w = operands[key]
@@ -729,8 +741,16 @@ def compare_dot_chain(mbd, operands):
             raise RuntimeError(f"dot_chain {name}: launches (chain, packed) {launched}, shape {tuple(got.shape)}")
         err, scale = (got - want).abs().max().item(), want.abs().max().item()
         tol = 2e-2 * scale if d == "bf16" else (2e-5 * scale if G is None else 2e-5)
+        geometry = ""
+        if d == "f32":
+            R = w.shape[1]
+            ctas, mirror = mbd.ctas_per_sm(R), mbd.f32_ctas_per_sm(R)
+            if ctas != mirror:
+                raise RuntimeError(f"dot_chain {name}: {ctas} CTAs an SM, the geometry says {mirror}")
+            geometry = (f"; {-(-x.shape[1] // mbd.f32_cols(R))} CTAs of {mbd.f32_cols(R)} columns, "
+                        f"{mbd.f32_smem_bytes(R)} bytes of shared memory, {ctas} an SM")
         log(f"compare dot_chain {name}: x {tuple(x.shape)}, w {tuple(w.shape)}: max|kernel - plain| = {err:.3e} "
-            f"(max|output| {scale:.3e}, tolerance {tol:.3e})")
+            f"(max|output| {scale:.3e}, tolerance {tol:.3e}){geometry}")
         if not err <= tol:
             raise RuntimeError(f"dot_chain {name}: kernel disagrees with its plain version: {err:.3e} > {tol:.3e}")
         errs[name] = err
@@ -871,18 +891,27 @@ def main() -> int:
               "activation": {"type": "LeakyHardtanh", "min_val": -0.5, "max_val": 0.7}}, 16, 512, 12),
         ]),
     }
-    lstm_cases = [  # (key, name, config, T, B, blocks, fast-tanh mode)
-        ("1x3_T64_B2048", "1 x 3", {"input_size": 1, "hidden_size": 3, "num_layers": 1}, 64, 2048, 6, False),
-        ("2x16_T64_B2048", "2 x 16", LSTM_MAIN, 64, 2048, 6, False),
-        ("2x16_T34_B2048", "2 x 16 T=34", LSTM_MAIN, 34, 2048, 6, False),
-        ("2x16_T64_B1000", "2 x 16 ragged", LSTM_MAIN, 64, 1000, 6, False),
-        ("2x5_out2_T64_B1000", "2 x 5, 2 outputs",
-         {"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 64, 1000, 6, False),
-        ("2x16_fast_tanh_T64_B2048", "2 x 16 fast-tanh", LSTM_MAIN, 64, 2048, 6, True),
-        # Where lstm.cu serves 2 x 16: the streams come in waves.
-        ("2x16_T64_B32768", "2 x 16 B=32768", LSTM_MAIN, 64, 32768, 4, False),
-        ("2x16_T34_B32768", "2 x 16 T=34 B=32768", LSTM_MAIN, 34, 32768, 4, False),
-        ("2x16_fast_tanh_T64_B32768", "2 x 16 fast-tanh B=32768", LSTM_MAIN, 64, 32768, 4, True),
+    lstm_1x3 = {"input_size": 1, "hidden_size": 3, "num_layers": 1}
+    lstm_2x5_out2 = {"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}
+    lstm_cases = [  # (key, name, config, T, B, blocks, fast-tanh mode, the kernel the wrapper must pick)
+        ("1x3_T64_B2048", "1 x 3", lstm_1x3, 64, 2048, 6, False, "lstm_wide_step"),
+        ("2x16_T64_B2048", "2 x 16", LSTM_MAIN, 64, 2048, 6, False, "lstm_wide_step"),
+        ("2x16_T34_B2048", "2 x 16 T=34", LSTM_MAIN, 34, 2048, 6, False, "lstm_wide_step"),
+        ("2x16_T64_B1000", "2 x 16 ragged", LSTM_MAIN, 64, 1000, 6, False, "lstm_wide_step"),
+        ("2x5_out2_T64_B1000", "2 x 5, 2 outputs", lstm_2x5_out2, 64, 1000, 6, False, "lstm_wide_step"),
+        ("2x16_fast_tanh_T64_B2048", "2 x 16 fast-tanh", LSTM_MAIN, 64, 2048, 6, True, "lstm_wide_step"),
+        ("2x8_T64_B2048", "2 x 8", LSTM_2X8, 64, 2048, 6, False, "lstm_wide_step"),
+        ("2x16_T64_B32768", "2 x 16 B=32768", LSTM_MAIN, 64, 32768, 4, False, "lstm_wide_step"),
+        ("2x16_T34_B32768", "2 x 16 T=34 B=32768", LSTM_MAIN, 34, 32768, 4, False, "lstm_wide_step"),
+        ("2x16_fast_tanh_T64_B32768", "2 x 16 fast-tanh B=32768", LSTM_MAIN, 64, 32768, 4, True, "lstm_wide_step"),
+        # Where lstm.cu serves: batches of several waves of its CTAs (LSTM_CU_FROM).
+        ("1x3_T64_B32768", "1 x 3 B=32768", lstm_1x3, 64, 32768, 4, False, "lstm_step"),
+        ("2x16_T64_B65536", "2 x 16 B=65536", LSTM_MAIN, 64, 65536, 4, False, "lstm_step"),
+        ("2x16_T34_B65536", "2 x 16 T=34 B=65536", LSTM_MAIN, 34, 65536, 4, False, "lstm_step"),
+        ("2x16_fast_tanh_T64_B65536", "2 x 16 fast-tanh B=65536", LSTM_MAIN, 64, 65536, 4, True, "lstm_step"),
+        ("2x8_fast_tanh_T64_B65536", "2 x 8 fast-tanh B=65536", LSTM_2X8, 64, 65536, 4, True, "lstm_step"),
+        ("2x5_out2_T64_B66000", "2 x 5, 2 outputs, ragged B=66000", lstm_2x5_out2, 64, 66000, 4, False,
+         "lstm_step"),
     ]
     # The modes inside the stack kernel and K3 (K1f): (kernel, key, name, config, T, B, blocks, fast-tanh, LUTs).
     mode_cases = [
@@ -976,8 +1005,10 @@ def main() -> int:
                                                              config, T, B, n, SEED + i, wavefront=True)
     errs["stack_wf_step"]["switch_T64_B2048"] = compare_wavefront_switch(
         nam, stack, make_nam, wavenet_preset("standard"), 64, 2048, 8, SEED)
-    for i, (key, name, config, T, B, n, fast) in enumerate(lstm_cases):
+    for i, (key, name, config, T, B, n, fast, expect) in enumerate(lstm_cases):
         kname, _, err = compare_lstm(nam, lstm, act, make_nam, name, config, T, B, n, SEED + i, fast)
+        if kname != expect:
+            raise RuntimeError(f"{name}: the wrapper picked {kname}, the case is for {expect}")
         errs[kname][key] = err
     # The tools' kernels (K4-K6) at their tools' shapes.
     errs["proto_ring_step"] = {"n_0_1_2_3_5_7": compare_proto_ring(prk, SEED)}
@@ -991,13 +1022,16 @@ def main() -> int:
     main_models["stack_step"], main["stack_step"] = run_main_path(
         nam, modules, "stack_step", make_nam("WaveNet", wavenet_preset("standard"), seed=SEED), 64, 0, gen)
     # 0.5 s at 44.1 kHz = 22,050 samples = 344 blocks of 64 and a 34-sample remainder.
-    # The LSTM at B=2048 runs lstm_wide.cu; lstm.cu serves it from B=32768 on.
+    # 2 x 16 runs lstm_wide.cu's tile kernel up to B=32768; lstm.cu serves it from B=65536 on.
     main_models["lstm_2x16"], main["lstm_2x16"] = run_main_path(
         nam, modules, "lstm_wide_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
         "lstm_2x16")
     main_models["lstm_2x16_B32768"], main["lstm_2x16_B32768"] = run_main_path(
-        nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
+        nam, modules, "lstm_wide_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
         "lstm_2x16_B32768", B=32768)
+    main_models["lstm_2x16_B65536"], main["lstm_2x16_B65536"] = run_main_path(
+        nam, modules, "lstm_step", make_nam("LSTM", LSTM_MAIN, seed=SEED, sample_rate=44100), 344, 34, gen,
+        "lstm_2x16_B65536", B=65536)
     main_models["convnet_step"], main["convnet_step"] = run_main_path(
         nam, modules, "convnet_step", make_nam("ConvNet", AMP_CONVNET, seed=SEED), 16, 0, gen)
     # The stack kernel's feature paths: prewarm 5,115 and 4,113 samples.
@@ -1035,8 +1069,8 @@ def main() -> int:
     # -- 5. timing ------------------------------------------------------------
     report["times"] = {
         "stack_step": time_model(nam, stack, "stack_step", main_models["stack_step"], (1024, 2048, 4096), gen, smi),
-        "lstm_2x16": time_model(nam, lstm, "lstm_step", main_models["lstm_2x16"], (2048, 8192, 32768), gen, smi,
-                                library=cudnn_lstm, path="lstm_2x16"),
+        "lstm_2x16": time_model(nam, lstm, "lstm_step", main_models["lstm_2x16"], (2048, 8192, 32768, 65536), gen,
+                                smi, library=cudnn_lstm, path="lstm_2x16"),
         "convnet_step": time_model(nam, convnet, "convnet_step", main_models["convnet_step"], (2048, 8192, 32768),
                                    gen, smi),
         **{path: time_model(nam, stack, "stack_step", main_models[path], (2048,), gen, smi, path=path)
@@ -1054,10 +1088,13 @@ def main() -> int:
         report["times"]["flagship_wavefront"] = time_model(
             nam, stack, "stack_wf_step", main_models["flagship_wavefront"], (1024, 2048, 4096), gen, smi,
             path="flagship_wavefront", plain="step_plain_wf")
-    report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], main_models["lstm_48x2"], gen, smi)
+    model_2x8 = nam.load_model(make_nam("LSTM", LSTM_2X8, seed=SEED, sample_rate=44100))
+    report["lstm_kernels"] = lstm_kernels_ab(lstm, main_models["lstm_2x16"], model_2x8, main_models["lstm_48x2"],
+                                             gen, smi)
     report["tool_times"] = time_tools(prk, mbd, dot_operands, gen, smi)
-    # lstm.cu's own path: the 2 x 16 timing at B=32768, where it serves.
-    report["times"]["lstm_2x16_B32768"] = {32768: report["times"]["lstm_2x16"][32768]}
+    # The 2 x 16 timings at B=32768 and 65536 are those paths' own.
+    for Bt in (32768, 65536):
+        report["times"][f"lstm_2x16_B{Bt}"] = {Bt: report["times"]["lstm_2x16"][Bt]}
     for path, (kernel, arch, key, rate, T, full, rem) in WIDE_PATHS.items():
         mod = modules[kernel.replace("_wide", "")]
         report["times"][path] = time_model(nam, mod, kernel, main_models[path], (B_MAIN,), gen, smi, path=path, T=T,
@@ -1097,8 +1134,8 @@ def main() -> int:
 
     # A kernel's numbers are those of its own main path: the wavefront kernel's
     # the flagship on it, each wide kernel's its first path in WIDE_PATHS.
-    # lstm.cu serves the LSTM from B=32768 on, lstm_wide.cu at B=2048.
-    own_path = {"stack_wf_step": "flagship_wavefront", "lstm_step": "lstm_2x16_B32768", "lstm_wide_step": "lstm_2x16"}
+    # lstm.cu serves 2 x 16 at B=65536, lstm_wide.cu at B=2048.
+    own_path = {"stack_wf_step": "flagship_wavefront", "lstm_step": "lstm_2x16_B65536", "lstm_wide_step": "lstm_2x16"}
     for path, (kernel, *_) in WIDE_PATHS.items():
         own_path.setdefault(kernel, path)
     kernels = []
@@ -1122,9 +1159,9 @@ def main() -> int:
         elif name == "stack_wide_step":
             entry["paths"] = {path: numbers(path) for path, (k, *_) in WIDE_PATHS.items() if k == name}
         elif name == "lstm_wide_step":
-            # Both paths run its tile kernel: every launch is counted there too.
+            # Its paths run its tile kernel: every launch is counted there too.
             entry["paths"] = {path: {**numbers(path), "tile_launches": main[path]["tile_launches"]}
-                              for path in ("lstm_2x16", "lstm_48x2")}
+                              for path in ("lstm_2x16", "lstm_2x16_B32768", "lstm_48x2")}
         kernels.append(entry)
     # The tools' kernels: launches from their entry points' runs, the rest from phases 3 and 5.
     variant_names = {"dot_chain": [c[0] for c in mbd.cases() if c[2] is None],

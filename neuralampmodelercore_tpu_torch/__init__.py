@@ -64,6 +64,7 @@ from .models.base import DEFAULT_MAX_BUFFER_SIZE, Model, ScopedPrewarmOnResetDef
 from .models import convnet, lstm, wavenet  # noqa: E402,F401
 from .models.engine import StreamEngine  # noqa: E402
 from .ops import activations  # noqa: E402
+from .ops.layers import set_matmul_precision  # noqa: E402
 
 __all__ = [
     "load_model",
@@ -72,6 +73,7 @@ __all__ = [
     "resolve_device",
     "Model",
     "StreamEngine",
+    "set_matmul_precision",
     "ScopedPrewarmOnResetDefault",
     "ModelMetadata",
     "NamData",

@@ -18,6 +18,8 @@ Kernel tiers:
   - "torch": the per-op engine step (the architecture's ``engine_step``);
   - "auto": "fused" when the model is on a CUDA device and the kernel's
     ``supports`` passes, else "torch".
+The JAX package's names of the two tiers, "pallas" and "xla", are accepted
+for "fused" and "torch"; ``kernel`` then reports the port's name.
 
 Semantics are identical to Model.process at the same block size; only the
 state layout and traffic differ. A state passed to ``process`` is consumed
@@ -35,12 +37,15 @@ from .. import registry
 from .base import Model
 
 KERNELS = ("auto", "fused", "torch")
+#: The JAX package's tier names (its models/engine.py) and the port's tier each stands for.
+JAX_KERNELS = {"pallas": "fused", "xla": "torch"}
 
 
 class StreamEngine:
     def __init__(self, model: Model, batch: int, block_size: int, kernel: str = "auto"):
+        kernel = JAX_KERNELS.get(kernel, kernel)
         if kernel not in KERNELS:
-            raise ValueError(f"kernel must be one of {'|'.join(KERNELS)}, got {kernel!r}")
+            raise ValueError(f"kernel must be one of {'|'.join(KERNELS + tuple(JAX_KERNELS))}, got {kernel!r}")
         self.model = model
         self.batch = int(batch)
         self.block_size = int(block_size)

@@ -22,5 +22,6 @@ def backend_for(cfg):
 
         return convnet
     raise NotImplementedError(
-        f"no CUDA kernel for {type(cfg).__name__} (ROADMAP Queue 1 item 9 ports Linear, which has no kernel)"
+        f"no CUDA kernel for {type(cfg).__name__} (Linear has none in the JAX package either; ROADMAP Queue 1, "
+        "the Linear item, ports it to the torch tier)"
     )

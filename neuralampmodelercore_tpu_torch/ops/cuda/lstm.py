@@ -27,12 +27,12 @@ SPT streams a thread; ``_tile`` picks S and SPT) runs every model whose
 weights and one tile fit the CTA's shared memory (``_tile_smem_bytes``),
 the group kernel (a group of threads a stream, the weights read from
 device memory) the rest, such as 64 x 8. Where lstm.cu and lstm_wide.cu
-both run a model, ``_is_wide`` picks by what it sees, as measured on an
-H100 (PERF.md): the wide kernel while the card holds every stream's group
-at once and the hidden size is above 8 (2 x 16 at B = 2,048: 0.25 ms
-against 1.11 ms), else lstm.cu,
-whose one thread per stream wins once the streams come in waves (2 x 16 at
-B = 32,768: 1.21 ms against 1.70 ms) and at the smallest hidden sizes.
+both run a model, ``_is_wide`` picks by its size and the batch, as a sweep
+of both on an H100 showed (``tools/lstm_tiles.py --sources``, PERF.md): the
+tile kernel, except where lstm.cu's thread holds h in at most 32 registers
+and the batch is large enough that its one thread a stream wins (LSTM_CU_FROM:
+2 x 16 at B = 65,536 in 1.57 ms against 1.80; at 32,768 0.84 against 1.22
+on the tile kernel).
 
 On a CUDA tensor ``step`` launches the kernel (or raises); on a CPU tensor it
 runs ``step_plain``, the same step on the same layout in plain torch.
@@ -68,14 +68,16 @@ HP_TILES = (4, 8, 16, 32)  # padded hidden widths with a kernel instance
 #: has an instance for every (HP, L) in HP_TILES x 1..MAX_LAYERS.
 MAX_LAYERS = 4
 THREADS = 64  # streams per CTA, THREADS in lstm.cu
+#: The batch from which lstm.cu runs a model rather than the tile kernel, by
+#: its padded hidden width HP, where L * HP <= LSTM_CU_MAX_STATE; no entry:
+#: never. Fitted to ``tools/lstm_tiles.py --sources`` on an H100 (PERF.md).
+LSTM_CU_FROM = {4: 32768, 8: 65536, 16: 65536}
+LSTM_CU_MAX_STATE = 32
 # The wide kernel (csrc/lstm_wide.cu): a group of G threads per stream.
 WIDE_MAX_IN = 8  # XW in lstm_wide.cu
 WIDE_MAX_HIDDEN = 64
 WIDE_MAX_LAYERS = 8
 WIDE_THREADS = 128  # MAX_THREADS in lstm_wide.cu
-#: Threads of wide-kernel groups the card holds at once (132 SMs x 2,048,
-#: rounded down): up to this many, the wide kernel's streams run in one wave.
-WIDE_RESIDENT = 1 << 18
 # The tile kernel (lstm_wide.cu lstm_tile_kernel) and the H100 SXM it is
 # sized for: 132 SMs of 228 KB of shared memory, 2,048 threads, 32 CTAs and
 # 64K registers each.
@@ -140,16 +142,27 @@ def supports(cfg, T: int, batch: int) -> Optional[str]:
     return None
 
 
+def _lstm_cu_runs(cfg) -> bool:
+    """Whether csrc/lstm.cu can run the model: it keeps h of every layer in
+    registers, at most MAX_LAYERS layers of HP_TILES[-1] units, and reads at
+    most MAX_IN input channels."""
+    return not (cfg.in_channels > MAX_IN or cfg.hidden_size > HP_TILES[-1] or cfg.num_layers > MAX_LAYERS
+                or _smem_bytes(cfg, _pad_hidden(cfg.hidden_size)) > SMEM_LIMIT)
+
+
 def _is_wide(cfg, batch: int) -> bool:
-    """Whether the wide kernel (csrc/lstm_wide.cu) runs the model: always
-    where lstm.cu cannot (it keeps h of every layer in registers, at most
-    MAX_LAYERS layers of HP_TILES[-1] units, and reads at most MAX_IN input
-    channels); else while the card holds every stream's group of threads at
-    once (batch * G <= WIDE_RESIDENT) and the hidden size is above 8."""
-    if (cfg.in_channels > MAX_IN or cfg.hidden_size > HP_TILES[-1] or cfg.num_layers > MAX_LAYERS
-            or _smem_bytes(cfg, _pad_hidden(cfg.hidden_size)) > SMEM_LIMIT):
+    """Whether the wide kernel (csrc/lstm_wide.cu) runs the model at this
+    batch: always where lstm.cu cannot; else unless h of every layer is at
+    most LSTM_CU_MAX_STATE floats of lstm.cu's thread and the batch reaches
+    LSTM_CU_FROM of the padded hidden width. Every model lstm.cu runs fits
+    the tile kernel (``_tile`` finds a tile), so that is the kernel it
+    gets. Against the faster of the two on each of 98 (model, batch) points
+    of the sweep, the pick loses at most 19% (5 x 2 at 49,152), and more
+    than 3% on 5 points (PERF.md)."""
+    if not _lstm_cu_runs(cfg):
         return True
-    return cfg.hidden_size > 8 and batch * _group(cfg.hidden_size) <= WIDE_RESIDENT
+    HP = _pad_hidden(cfg.hidden_size)
+    return cfg.num_layers * HP > LSTM_CU_MAX_STATE or batch < LSTM_CU_FROM.get(HP, 1 << 62)
 
 
 def _group(H: int) -> int:
@@ -270,7 +283,7 @@ def prepare(cfg, params, T: int, batch: int, wide: Optional[bool] = None, tile=N
         raise ValueError(f"fused lstm kernel does not support this config: {reason}")
     if wide is None:
         wide = _is_wide(cfg, batch)
-    elif not wide and _is_wide(cfg, 1 << 30):
+    elif not wide and not _lstm_cu_runs(cfg):
         raise ValueError("csrc/lstm.cu cannot run this config: it needs the wide kernel")
     device = params["head_b"].device
     if wide:

@@ -27,6 +27,22 @@ from . import activations as _act
 
 Params = Dict[str, Any]
 
+#: The names set_matmul_precision accepts: both name float32-exact products.
+MATMUL_PRECISIONS = ("highest", "float32")
+
+
+def set_matmul_precision(precision: str) -> None:
+    """The JAX package's precision switch (its ops/layers.py). The port is
+    float32-exact (ROADMAP North star: no TF32, no single-pass or bf16
+    products), so it takes only the names of that precision, "highest" and
+    "float32" (any case), and holds torch's float32 matmuls at "highest";
+    every other name ("high", "bfloat16_3x", "default", "bfloat16", ...)
+    raises ValueError."""
+    if not isinstance(precision, str) or precision.lower() not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul precision {precision!r}: the port is float32-exact and takes only "
+                         f"{' or '.join(MATMUL_PRECISIONS)} (no TF32, no bfloat16 passes)")
+    torch.set_float32_matmul_precision("highest")
+
 
 def _validate_groups(in_channels: int, out_channels: int, groups: int) -> None:
     """(reference: NAM/dsp.cpp:313-323, NAM/conv1d.cpp:59-69)"""

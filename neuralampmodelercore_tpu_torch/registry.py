@@ -12,7 +12,7 @@ functions over (config, params, state) with tensors on an explicit device:
 
 WaveNet, LSTM and ConvNet are ported. Linear and the meta-models
 (SlimmableWavenet, SlimmableContainer) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+the ROADMAP Queue 1 item that ports them (its title, not its number).
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ State = Any
 
 # Architectures of the reference that later slices port (ROADMAP.md Queue 1).
 NOT_PORTED: Dict[str, str] = {
-    "Linear": "ROADMAP Queue 1 item 9 (Linear)",
-    "SlimmableWavenet": "ROADMAP Queue 1 item 10 (meta-models: slimmable WaveNet)",
-    "SlimmableContainer": "ROADMAP Queue 1 item 10 (meta-models: SlimmableContainer)",
+    "Linear": "ROADMAP Queue 1, the Linear item (models/linear.py)",
+    "SlimmableWavenet": "ROADMAP Queue 1, the Meta-models item (models/slimmable.py: slimmable WaveNet)",
+    "SlimmableContainer": "ROADMAP Queue 1, the Meta-models item (models/container.py: SlimmableContainer)",
 }
 
 

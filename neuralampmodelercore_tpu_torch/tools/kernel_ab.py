@@ -1,6 +1,8 @@
 """Time one kernel of several checkouts on one card, in turns.
 
     python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] [--config flagship]
+    python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] --tool microbench_dots \
+        [--case "packed G=8 f32" ...]
 
 Each TREE is the root of a checkout (one holding neuralampmodelercore_tpu_torch/).
 ``--config`` names a config of this checkout's ``tools/agreement.py``, passed to
@@ -20,6 +22,14 @@ is skipped. A variant of a kernel is a
 copy of the tree with its source edited (for example ``#pragma unroll 2``
 before the unit loop of ``csrc/lstm.cu``). Prints the card's name and power
 limit. Needs a CUDA card.
+
+``--tool microbench_dots`` times the dot-chain kernel (csrc/dot_chain.cu, K5
+and K6) instead: every tree builds it, then each turn (A, B, ..., B, A, one
+process each) times every ``--case`` of the tool (a name of
+``microbench_dots.cases()``; by default every f32 case) at the tool's shapes
+and seed, 50 calls after 5 warm-up calls, and prints the SHA-256 of the
+output's bytes, so that equal hashes across trees show outputs equal bit for
+bit.
 """
 
 from __future__ import annotations
@@ -83,18 +93,76 @@ print(json.dumps({"ms": a.elapsed_time(b) / 20}))
 """
 
 
+DOTS_WORKER = r"""
+import hashlib, json, sys, time
+tree, mode, names = sys.argv[1:4]
+sys.path.insert(0, tree)
+import torch
+from neuralampmodelercore_tpu_torch.tools import microbench_dots as mbd
+if mode == "build":
+    t0 = time.perf_counter()
+    mbd.LIB.compile()
+    print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": [
+        line.strip() for line in mbd.LIB.build_log.splitlines() if "registers" in line or "spill" in line
+        or "Compiling entry" in line]}))
+    sys.exit(0)
+data, cases = mbd.data(), {name: (key, G, d) for name, key, G, d in mbd.cases()}
+out = {}
+for name in json.loads(names):
+    key, G, d = cases[name]
+    x, w = (torch.from_numpy(a).cuda() for a in data[key])
+    dtype = mbd.DTYPES[d]
+    run = (lambda: mbd.chain(x, w, dtype)) if G is None else (lambda: mbd.packed(x, w, G, dtype))
+    y = run()
+    torch.cuda.synchronize()
+    out[name] = {"ms": mbd.time_ms(run), "sha256": hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()}
+print(json.dumps(out))
+"""
+
+
 def _worker(tree: str, kernel: str, doc: str, mode: str, modes: str) -> dict:
-    out = subprocess.run([sys.executable, "-c", WORKER, tree, kernel, doc, str(B), str(T), mode, modes],
-                         capture_output=True, text=True)
+    return _run([WORKER, tree, kernel, doc, str(B), str(T), mode, modes], f"{tree} ({mode})")
+
+
+def _run(args, what: str) -> dict:
+    out = subprocess.run([sys.executable, "-c", *args], capture_output=True, text=True)
     if out.returncode != 0:
-        raise RuntimeError(f"{tree} ({mode}) failed:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
+        raise RuntimeError(f"{what} failed:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def dots_ab(trees, names, smi: str) -> dict:
+    """``--tool microbench_dots``: build in every tree, then time the cases
+    in turns; returns {case: {tree: {"ms": [...], "sha256": [...]}}}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(trees)) as ex:
+        builds = list(ex.map(lambda t: _run([DOTS_WORKER, t, "build", "[]"], f"{t} (build)"), trees))
+    for tree, b in zip(trees, builds):
+        print(f"build dot_chain.cu {tree}: {b['build_s']:.1f} s", flush=True)
+        for line in b["ptxas"]:
+            print(f"  ptxas {line}", flush=True)
+    res = {name: {t: {"ms": [], "sha256": []} for t in trees} for name in names}
+    for tree in trees + trees[::-1]:
+        for name, r in _run([DOTS_WORKER, tree, "time", json.dumps(names)], f"{tree} (time)").items():
+            res[name][tree]["ms"].append(r["ms"])
+            res[name][tree]["sha256"].append(r["sha256"])
+    for name, per_tree in res.items():
+        hashes = {h for r in per_tree.values() for h in r["sha256"]}
+        for tree, r in per_tree.items():
+            print(f"{tree}: dot_chain {name}: " + ", ".join(f"{1e3 * m:.1f}" for m in r["ms"])
+                  + f" us/call, sha256 {r['sha256'][0][:16]}  [{smi}]", flush=True)
+        print(f"dot_chain {name}: outputs {'equal bit for bit in every tree' if len(hashes) == 1 else 'DIFFER'}",
+              flush=True)
+    return res
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--config", default="flagship", help="a config name of tools/agreement.py")
+    ap.add_argument("--tool", choices=("microbench_dots",), help="time the tool's kernel instead of a config's")
+    ap.add_argument("--case", action="append", help="with --tool: a case of the tool (repeatable)")
     args = ap.parse_args(argv)
 
     import torch
@@ -111,6 +179,15 @@ def main(argv=None) -> int:
     smi = card_and_power_limit()
     print(smi, flush=True)
     trees = [os.path.abspath(t) for t in args.trees]
+    if args.tool:
+        from .microbench_dots import cases
+
+        names = args.case or [c[0] for c in cases() if c[3] == "f32"]
+        unknown = sorted(set(names) - {c[0] for c in cases()})
+        if unknown:
+            ap.error(f"--case {unknown}: not a case of microbench_dots")
+        dots_ab(trees, names, smi)
+        return 0
     arch, config, seed = configs()[args.config]
     kernel = KERNELS[arch]
     modes = json.dumps(MODES.get(args.config, (False, (), False)))

@@ -1,6 +1,7 @@
 """Time the LSTM tile kernel at every tile shape it can run, on one card.
 
     python3 -m neuralampmodelercore_tpu_torch.tools.lstm_tiles [--config lstm_48x2] [--batch 2048 8192]
+    python3 -m neuralampmodelercore_tpu_torch.tools.lstm_tiles --sources 16x2 8x2 [--batch 2048 65536]
 
 For each batch, on a config of ``tools/agreement.py`` (an LSTM that
 ``ops/cuda/lstm.py`` sends to csrc/lstm_wide.cu): the group kernel, then
@@ -12,6 +13,13 @@ output and state are held to the group kernel's bit for bit. Prints each
 time with the wrapper's pick marked, the card's name and power limit, and as
 its last line one JSON object with every reading. The measurement behind
 ``lstm._tile``'s rule.
+
+With ``--sources HxL ...`` it times instead, for each LSTM of H units and L
+layers (one input) and each batch, csrc/lstm.cu against csrc/lstm_wide.cu
+(the kernel ``_tile`` picks there) in turns (lstm.cu, lstm_wide.cu,
+lstm_wide.cu, lstm.cu), holds their first blocks' outputs within 1e-4 of
+each other, and marks the source ``lstm._is_wide`` picks: the measurement
+behind that rule.
 Needs a CUDA card.
 """
 
@@ -87,10 +95,50 @@ def sweep(config: str, batch: int, log=print) -> dict:
     return out
 
 
+def sources(hidden: int, layers: int, batch: int, log=print) -> dict:
+    """{"lstm_cu_ms": [a, b], "lstm_wide_ms": [a, b], "tile": [S, SPT] or None, "picked"} at one batch."""
+    import torch
+
+    import neuralampmodelercore_tpu_torch as nam
+    from ..ops.cuda import lstm
+    from .generate import make_nam
+
+    model = nam.load_model(make_nam("LSTM", {"input_size": 1, "hidden_size": hidden, "num_layers": layers}, seed=1))
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((cfg.in_channels, T, batch), device="cuda", generator=gen) * 0.3
+    out, first = {"lstm_cu_ms": [], "lstm_wide_ms": []}, {}
+    for wide in (False, True, True, False):
+        ep, st = lstm.prepare(cfg, model.params, T, batch, wide=wide)
+        if wide not in first:
+            first[wide] = lstm.step(cfg, T, ep, {k: v.clone() for k, v in st.items()}, x)[0]
+        box = {"s": st}
+
+        def run():
+            _, box["s"] = lstm.step(cfg, T, ep, box["s"], x)
+
+        out["lstm_wide_ms" if wide else "lstm_cu_ms"].append(_time(run))
+        if wide:
+            lay = ep["layout"]
+            out["tile"] = [lay.tile, lay.tile_spt] if lay.tile else None
+        del ep, st, box
+    err = (first[True] - first[False]).abs().max().item()
+    if not err <= 1e-4:
+        raise RuntimeError(f"{hidden}x{layers} B={batch}: lstm.cu and lstm_wide.cu differ by {err:.3e}")
+    out["picked"] = "lstm_wide.cu" if lstm._is_wide(cfg, batch) else "lstm.cu"
+    a, w = out["lstm_cu_ms"], out["lstm_wide_ms"]
+    log(f"{hidden}x{layers} B={batch}: lstm.cu {1e3 * a[0]:.1f}/{1e3 * a[1]:.1f} us, lstm_wide.cu "
+        f"(tile {out['tile']}) {1e3 * w[0]:.1f}/{1e3 * w[1]:.1f} us; the wrapper picks {out['picked']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", nargs="+", default=["lstm_48x2", "lstm_2x16"], help="configs of tools/agreement.py")
     ap.add_argument("--batch", nargs="+", type=int, default=[2048, 8192, 32768])
+    ap.add_argument("--sources", nargs="+", metavar="HxL",
+                    help="time lstm.cu against lstm_wide.cu on these LSTMs (H units, L layers) instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -102,6 +150,10 @@ def main(argv=None) -> int:
 
     smi = card_and_power_limit()
     print(smi, flush=True)
+    if args.sources:
+        res = {f"{m} B={b}": sources(*map(int, m.split("x")), b) for m in args.sources for b in args.batch}
+        print(json.dumps({"card": smi, "sources": res}))
+        return 0
     res = {f"{c} B={b}": sweep(c, b) for c in args.config for b in args.batch}
     print(json.dumps({"card": smi, "sweeps": res}))
     return 0

@@ -29,7 +29,10 @@ the function, so it is not a knob here.
 
 ``chain`` and ``packed`` launch the kernel on CUDA tensors (or raise) and run
 the plain version on CPU tensors; ``chain_launches`` and ``packed_launches``
-count each wrapper's launches and nothing else. ``main`` runs the tool's
+count each wrapper's launches and nothing else. ``f32_cols``,
+``f32_smem_bytes`` and ``f32_ctas_per_sm`` mirror the f32 kernels' launch
+geometry; ``ctas_per_sm`` asks the CUDA runtime (chip_smoke and the card
+tests hold the two equal). ``main`` runs the tool's
 sweep at its own sizes and seed on the card (it raises without one) and ends
 with a JSON line.
 """
@@ -57,6 +60,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_TC_FLOPS_PER_S = 989e12
 
+# The f32 kernels' launch geometry, as csrc/dot_chain.cu sets it, and the
+# H100 SXM it is sized for: an SM's 228 KB of shared memory (1 KB of it
+# reserved a CTA), 2,048 threads and 64K registers.
+THREADS = 256  # THREADS in dot_chain.cu
+KS = 16  # depth of a staged weight slab
+#: Registers a thread: the R x NC tile kernel (R = 64, 128) at most 65,536 / (2 x 256), as its
+#: __launch_bounds__(256, 2) holds ptxas; the K5 kernel (R = 16) 40 (ptxas -v; chip_smoke prints it).
+F32_REGS = {16: 40, 64: 128, 128: 128}
+SM_SMEM, SM_THREADS, SM_REGS = 233472, 2048, 65536
+
 #: Launches by ``chain`` (K5) and by ``packed`` (K6); the plain versions do not count.
 chain_launches = 0
 packed_launches = 0
@@ -65,10 +78,37 @@ packed_launches = 0
 def _bind(lib: ctypes.CDLL) -> None:
     lib.nam_dot_chain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.nam_dot_chain.restype = ctypes.c_int
+    lib.nam_dot_chain_ctas_per_sm.argtypes = [ctypes.c_int]
+    lib.nam_dot_chain_ctas_per_sm.restype = ctypes.c_int
 
 
 #: csrc/dot_chain.cu, built by nvcc at first launch.
 LIB = _build.Library("dot_chain.cu", _bind)
+
+
+def f32_cols(R: int) -> int:
+    """Columns a CTA of the f32 kernel computes: THREADS threads of an 8 x 8
+    tile over R rows, or of a 4 x 4 tile at R = 16 (K5)."""
+    return THREADS * 16 // R if R == 16 else THREADS * 64 // R
+
+
+def f32_smem_bytes(R: int) -> int:
+    """Shared memory of an f32 CTA: y (R, f32_cols(R)) and two weight slabs
+    of KS rows of R + 4 floats (step 0's operand slabs lie in y's space);
+    at R = 16 the whole operand (3R, f32_cols(R)) and one slab."""
+    if R == 16:
+        return 4 * (3 * R * f32_cols(R) + KS * (R + 4))
+    return 4 * (R * f32_cols(R) + 2 * KS * (R + 4))
+
+
+def f32_ctas_per_sm(R: int) -> int:
+    """f32 CTAs one SM holds at once: bound by shared memory, threads and registers."""
+    return min(SM_SMEM // (f32_smem_bytes(R) + 1024), SM_THREADS // THREADS, SM_REGS // (F32_REGS[R] * THREADS))
+
+
+def ctas_per_sm(R: int) -> int:
+    """The CUDA runtime's count of the f32 kernel's CTAs an SM holds (on the card)."""
+    return LIB.load().nam_dot_chain_ctas_per_sm(R)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, dtype) -> None:

@@ -18,6 +18,7 @@ test, when there is no card. On the card:
 (``--noconftest``: tests/conftest.py imports JAX.) Tolerance 2e-5 absolute,
 the JAX package's tier-against-tier tolerance."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,7 +105,11 @@ AMP_CONVNET = {"channels": 16, "dilations": [1, 2, 4, 8, 16, 32, 64, 128, 256, 5
         (LSTM_2X16, 34, 256, False),
         ({"input_size": 1, "hidden_size": 5, "num_layers": 2, "out_channels": 2}, 16, 300, False),
         (LSTM_2X16, 64, 512, True),
-        (LSTM_2X16, 64, 32768, False),  # lstm.cu serves 2 x 16 from here on; below, lstm_wide.cu
+        (LSTM_2X16, 64, 32768, False),  # lstm_wide.cu's tile kernel, as at B = 2,048
+        # lstm.cu, from LSTM_CU_FROM's batch on: 2 x 16 and 2 x 8 (fast-tanh) at 65,536, 1 x 3 at 32,768.
+        (LSTM_2X16, 64, 65536, False),
+        ({"input_size": 1, "hidden_size": 8, "num_layers": 2}, 64, 65536, True),
+        ({"input_size": 1, "hidden_size": 3, "num_layers": 1}, 34, 32768, False),
     ],
 )
 def test_lstm_kernel_matches_plain_version(config, T, B, fast):
@@ -556,3 +561,91 @@ def test_dot_chain_kernel_matches_plain_version(kind, G, dtype):
             assert err <= 2e-5 * scale
         else:
             assert err <= 2e-5
+
+
+F32_CASES = [("chain", None), ("packed", 4), ("packed", 8)]
+
+
+def _f32_chain(G, N=None, seed=None):
+    """A f32 case's operands on the card: the tool's own (N = 65,536), or N
+    columns from ``seed`` at the tool's scale."""
+    x_np, w_np = tmbd.data()["chain" if G is None else f"G{G}"]
+    if seed is not None:
+        x_np = (np.random.default_rng(seed).standard_normal((x_np.shape[0], N)) * 0.1).astype(np.float32)
+    return torch.from_numpy(x_np).cuda(), torch.from_numpy(w_np).cuda()
+
+
+def _f32_run(x, w, G):
+    return tmbd.chain(x, w, torch.float32) if G is None else tmbd.packed(x, w, G, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G", F32_CASES)
+def test_dot_chain_f32_matches_a_float64_chain(kind, G):
+    """K5 and K6 in f32 at the tool's shapes against the same chain in
+    float64 on the card: within 2e-5 for K6 and 2e-5 x max|output| for K5,
+    whose 20 steps shrink the output to about 5e-4."""
+    _cuda_or_skip()
+    x, w = _f32_chain(G)
+    got = _f32_run(x, w, G)
+    want = x.double()
+    for s in range(w.shape[0]):
+        y = torch.tanh(w[s].double() @ want)
+        want = torch.cat([y, y, y])
+    err = (got.double() - want).abs().max().item()
+    assert err <= (2e-5 * want.abs().max().item() if G is None else 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 64, 132, 65536 + 4])
+def test_dot_chain_f32_ragged_columns(N):
+    """K6 at G = 8 (R = 128, 128 columns a CTA) at N = 4 and 64 (below one
+    CTA's columns), 132 (one column group past a CTA) and 65,540: within
+    2e-5 of the plain version, one launch a call."""
+    _cuda_or_skip()
+    x, w = _f32_chain(8, N, seed=N)
+    before = tmbd.packed_launches
+    got = tmbd.packed(x, w, 8)
+    want = tmbd.packed_plain(x, w, 8)
+    assert tmbd.packed_launches == before + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,G", F32_CASES)
+def test_dot_chain_f32_one_launch_and_no_write_past_the_output(kind, G):
+    """The whole f32 chain is one kernel launch (the profiler sees one
+    kernel on the card), and a call writes its (3R, N) output and nothing
+    on either side of it: a guard band of 4,096 floats keeps its values.
+    A ragged N = 1,000 and the tool's 65,536."""
+    _cuda_or_skip()
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = tmbd.LIB.load()
+    for N in (1000, 65536):
+        x, w = _f32_chain(G, N, seed=N)
+        S, R, _ = w.shape
+        guard = 4096
+        buf = torch.full((x.numel() + 2 * guard,), 7.0, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            err = lib.nam_dot_chain(x.data_ptr(), w.data_ptr(), buf[guard:].data_ptr(), S, R, N, 0,
+                                    torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()
+        assert err == 0
+        kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "chain_f32" in kernels[0], kernels
+        assert (buf[:guard] == 7.0).all() and (buf[guard + x.numel():] == 7.0).all()
+        want = tmbd.packed_plain(x, w, G) if G else tmbd.chain_plain(x, w)
+        err = (buf[guard:guard + x.numel()].view(x.shape) - want).abs().max().item()
+        assert err <= (2e-5 if G else 2e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", tmbd.ROWS)
+def test_dot_chain_f32_geometry_matches_the_runtime(R):
+    """The Python mirror of the f32 kernel's geometry holds: the CUDA
+    runtime puts as many CTAs on an SM as ``f32_ctas_per_sm`` says."""
+    _cuda_or_skip()
+    assert tmbd.ctas_per_sm(R) == tmbd.f32_ctas_per_sm(R)

@@ -3,6 +3,7 @@ parsed configs and parameters, on documents built by the generator with a
 numpy seed (the same document goes to both packages)."""
 
 import dataclasses
+import re
 
 import jax
 import numpy as np
@@ -184,21 +185,21 @@ def test_ported_architectures_load_and_match_jax(arch, config):
 @pytest.mark.parametrize("arch,config", [("Linear", {"receptive_field": 8, "bias": True})])
 def test_unported_architectures_raise_with_roadmap_item(arch, config):
     doc = make_nam(arch, config, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the Linear item"):
         tnam.load_model(doc, device="cpu")
     # As a nested condition DSP too.
     nested = make_nam("WaveNet", with_condition_dsp({"layers": [_layer()], "head": None}, doc), seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the Linear item"):
         tnam.load_model(nested, device="cpu")
 
 
 def test_meta_models_and_legacy_loader_raise():
     cfg = wavenet_preset("simple")
     cfg["layers"][0]["slimmable"] = {"method": "slice_channels_uniform"}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the Meta-models item"):
         tnam.load_model({"version": "0.5.4", "architecture": "WaveNet", "config": cfg, "weights": []},
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the Meta-models item"):
         tnam.load_model({"version": "0.5.4", "architecture": "SlimmableContainer", "config": {},
                          "weights": []}, device="cpu")
     with pytest.raises(NotImplementedError, match="legacy"):
@@ -207,3 +208,21 @@ def test_meta_models_and_legacy_loader_raise():
         tnam.load_model("/nonexistent/model.nam", device="cpu")
     assert tnam.get_dsp is tnam.load_model
     assert tregistry.has_architecture("WaveNet") and not tregistry.has_architecture("Linear")
+
+
+@pytest.mark.parametrize("name", sorted(tregistry.NOT_PORTED))
+def test_not_ported_errors_name_the_roadmap_item_by_title(name):
+    """Each architecture the port still refuses is one the JAX package
+    loads (Linear through its registry, the meta-models through the classes
+    it exports), and the port's error names the ROADMAP Queue 1 item that
+    ports it by its title, Linear or Meta-models, with no item number to go
+    stale."""
+    from neuralampmodelercore_tpu import registry as jregistry
+
+    if name == "Linear":
+        assert jregistry.has_architecture(name)
+    else:
+        assert {"SlimmableWavenet": "SlimmableWavenetModel", "SlimmableContainer": "ContainerModel"}[name] in jnam.__all__
+    message = str(tregistry.not_ported(name))
+    assert f"ROADMAP Queue 1, the {'Linear' if name == 'Linear' else 'Meta-models'} item" in message
+    assert not re.search(r"item \d", message)

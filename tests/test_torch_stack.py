@@ -240,7 +240,7 @@ def test_supports_block_size_and_backend():
     assert tstack.supports(tm.config, 1024, B) is None  # the wide kernel (a thread runs several frames)
     assert "block size" in tstack.supports(tm.config, 2048, B)  # the JAX gate refuses it too
     assert "WaveNetConfig" in tstack.supports(object(), 64, B)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, the Linear item"):
         backend_for(object())
 
 

@@ -216,6 +216,28 @@ def test_dot_chain_work_and_bound(case, flops, f32_us, bf16_us):
     assert (1e3 * ms, by) == (pytest.approx(bf16_us, rel=5e-3), "bytes")
 
 
+@pytest.mark.parametrize("R,cols,smem,ctas_per_sm,ctas", [
+    # K5: a 4 x 4 tile a thread, the whole (48, 256) operand and one (16, 20) slab; shared memory holds 4 an SM.
+    (16, 256, 4 * (48 * 256 + 16 * 20), 4, 256),
+    # K6 at G = 4 and 8: an 8 x 8 tile a thread, y (R, cols) and two (16, R + 4) slabs; 128 registers, 2 an SM.
+    (64, 256, 4 * (64 * 256 + 2 * 16 * 68), 2, 256),
+    (128, 128, 4 * (128 * 128 + 2 * 16 * 132), 2, 512),
+])
+def test_dot_chain_f32_launch_geometry(R, cols, smem, ctas_per_sm, ctas):
+    """The f32 kernel's columns a CTA, shared memory and CTAs an SM at
+    R = 16, 64 and 128, computed by hand (at R = 128: 128 columns, 82,432
+    bytes, two CTAs an SM, 512 CTAs at N = 65,536, 1.94 waves on 132 SMs;
+    the card tests hold the CTAs an SM against the CUDA runtime)."""
+    N = mbd.T * mbd.B
+    assert (mbd.f32_cols(R), mbd.f32_smem_bytes(R), mbd.f32_ctas_per_sm(R)) == (cols, smem, ctas_per_sm)
+    assert -(-N // mbd.f32_cols(R)) == ctas
+    assert mbd.f32_smem_bytes(R) + 1024 <= mbd.SM_SMEM // ctas_per_sm  # with the 1 KB each CTA reserves
+    if R == 128:
+        # Each CTA reads both steps' weights: 512 CTAs x 2 x 128 x 384 x 4 bytes through L2 a call, a
+        # quarter of the 2,048 CTAs of 32 columns that a 4 x 4 tile makes at R = 128.
+        assert ctas * 2 * R * 3 * R * 4 == 201326592 == (N // 32) * 2 * R * 3 * R * 4 // 4
+
+
 def test_proto_ring_work_and_bound():
     wk = prk.work()
     assert wk["bytes"] == 4 * 131072 == 524288

@@ -241,16 +241,29 @@ def test_wide_convnet_matches_jax(name):
 def test_register_tile_kernels_keep_what_they_serve():
     """WaveNets and ConvNets within the old limits keep csrc/stack.cu and
     convnet.cu, with their old layouts. An LSTM both LSTM kernels run takes
-    the wide kernel while the card holds every stream's thread group at
-    once and its hidden size is above 8, else lstm.cu (PERF.md: the wide
-    kernel is 4.4x faster on 2 x 16 at B = 2,048, 1.4x slower at 32,768)."""
+    lstm.cu, with its old layout, where h of every layer is at most 32
+    floats and the batch reaches LSTM_CU_FROM of its padded hidden width,
+    else the wide kernel's tile kernel (PERF.md, ``lstm_tiles --sources``:
+    on 2 x 16 the tile kernel is 5.6x faster at B = 2,048 and 1.4x at
+    32,768; lstm.cu is 1.15x faster at 65,536)."""
     for arch, config, T in (("WaveNet", FLAGSHIP, 64), ("WaveNet", FLAGSHIP, 512), ("ConvNet", AMP, 64),
-                            ("ConvNet", AMP, 512), ("LSTM", _lstm(3, 1), 64), ("LSTM", _lstm(8, 4), 64)):
+                            ("ConvNet", AMP, 512)):
         tm = tnam.load_model(make_nam(arch, config, seed=0), device="cpu")
         assert not _wide_layout(arch, tm, T), (arch, T)
+    for (hidden, layers), batch in (((3, 1), 32768), ((8, 4), 65536), ((16, 2), 65536)):
+        tm = tnam.load_model(make_nam("LSTM", _lstm(hidden, layers), seed=0), device="cpu")
+        assert tlstm.prepare(tm.config, tm.params, 64, batch)[0]["layout"].wide_group == 0, (hidden, layers)
     for (hidden, layers), batch, wide in ((((16, 2), 2, True), ((16, 2), 2048, True), ((16, 2), 16384, True),
-                                           ((16, 2), 32768, False), ((32, 4), 8192, True), ((32, 4), 8193, False),
-                                           ((48, 2), 1 << 20, True), ((8, 5), 1 << 20, True))):
+                                           ((16, 2), 32768, True), ((16, 2), 65535, True), ((16, 2), 65536, False),
+                                           ((16, 2), 1 << 20, False), ((16, 1), 65536, False), ((12, 2), 65536, False),
+                                           ((32, 4), 8192, True), ((32, 4), 8193, True), ((32, 4), 1 << 20, True),
+                                           ((32, 1), 1 << 20, True), ((24, 2), 1 << 20, True), ((16, 3), 1 << 20, True),
+                                           ((16, 4), 1 << 20, True),
+                                           ((3, 1), 2, True), ((3, 1), 32767, True), ((3, 1), 32768, False),
+                                           ((4, 2), 32768, False), ((4, 8), 32768, True), ((5, 2), 32768, True),
+                                           ((5, 2), 65536, False), ((8, 2), 2048, True), ((8, 2), 1 << 20, False),
+                                           ((8, 4), 2, True), ((8, 4), 65536, False), ((48, 2), 1 << 20, True),
+                                           ((8, 5), 1 << 20, True))):
         cfg = tnam.load_model(make_nam("LSTM", _lstm(hidden, layers), seed=0), device="cpu").config
         assert tlstm._is_wide(cfg, batch) == wide, (hidden, layers, batch)
 
@@ -318,6 +331,24 @@ def test_lstm_tile_shared_memory_bytes():
     assert tlstm._tile(cfg, 2048) is None
 
 
+@pytest.mark.parametrize("hidden,layers,inputs", [(1, 1, 1), (8, 4, 1), (9, 1, 1), (16, 2, 1), (32, 4, 1),
+                                                   (32, 4, 4), (24, 3, 2)])
+def test_lstm_models_lstm_cu_runs_fit_the_tile_kernel(hidden, layers, inputs):
+    """Every LSTM that csrc/lstm.cu can run (up to its limits, 32 units, 4
+    layers, 4 inputs) fits lstm_wide.cu's tile kernel at every batch, so
+    where the wrapper sends it to lstm_wide.cu the tile kernel (not the
+    group kernel) runs it; lstm.cu runs it on request."""
+    config = _lstm(hidden, layers, inputs)
+    cfg = _lstm_cfg(config)
+    tm = tnam.load_model(make_nam("LSTM", config, seed=0), device="cpu")
+    assert tlstm._lstm_cu_runs(cfg)
+    for batch in (1, 2048, 32768, 65536, 1 << 20):
+        assert tlstm._tile(cfg, batch) is not None, batch
+    assert tlstm.prepare(cfg, tm.params, 64, 2048)[0]["layout"].tile > 0
+    assert tlstm.prepare(cfg, tm.params, 64, 65536, wide=True)[0]["layout"].tile > 0
+    assert tlstm.prepare(cfg, tm.params, 64, 2048, wide=False)[0]["layout"].wide_group == 0
+
+
 @pytest.mark.parametrize("name", sorted(TILE_FITS))
 def test_lstm_tile_kernel_picked_where_it_fits(name):
     """Every LSTM the wrapper sends to lstm_wide.cu at B = 2,048 whose
@@ -357,9 +388,12 @@ def test_lstm_tile_shape_and_grid(name, batch, tile, grid):
 
 
 def test_lstm_tiles_tool_needs_a_card(monkeypatch, capsys):
-    """The tile sweep measures the card only: without one it exits 2 and prints no result."""
+    """The tile sweep and the source comparison measure the card only:
+    without one each exits 2 and prints no result."""
     from neuralampmodelercore_tpu_torch.tools import lstm_tiles
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert lstm_tiles.main(["--config", "lstm_48x2", "--batch", "2048"]) == 2
-    assert "needs a CUDA card" in capsys.readouterr().err
+    assert lstm_tiles.main(["--sources", "16x2", "--batch", "65536"]) == 2
+    captured = capsys.readouterr()
+    assert captured.out == "" and captured.err.count("needs a CUDA card") == 2

@@ -49,7 +49,8 @@ Phases (any failure raises and exits non-zero):
      are not multiples of T); the wide kernels, each run counted on the wide
      kernel: stack_wide (rows 33, 48 gated and 64, rows 128, gated MEDIUM,
      LARGE, a 40-channel net inside a fused condition chain, the flagship at
-     T=600 and T=1,024, 8 input channels with FiLM), lstm_wide (48 x 2,
+     T=600 and T=1,024, 8 input channels with FiLM; LARGE again at each
+     register tile, stack.WIDE_TILES), lstm_wide (48 x 2,
      64 x 1 and 8 x 5, each at T=64 with a ragged B and at T=34, the exact
      prewarm's remainder; 8 inputs; each counted on its tile kernel, and
      64 x 8, whose weights do not fit it, on its group kernel),
@@ -96,7 +97,9 @@ Phases (any failure raises and exits non-zero):
      flagship, the flagship under a Tanh LUT (-5, 5, 512 points), the
      wavefront flagship (B = 1024, 2048, 4096; its plain version is
      step_plain_wf), the amp ConvNet under fast-tanh and the five wide-kernel
-     paths (lstm_48x2 with cuDNN's call); then a doubling sweep of the kernel
+     paths (lstm_48x2 with cuDNN's call; on the three stack_wide.cu paths the
+     torch engine tier is the yardstick, timed twice in turns with the
+     kernel at its iteration count, kernel / tier logged); then a doubling sweep of the kernel
      for the real-time 48 kHz stream count of each model, of the flagship
      paths and of the five wide-kernel paths (at T=1,024 for
      flagship_T1024: its deadline is 21.3 ms); both LSTM sources on 2 x 16
@@ -268,7 +271,7 @@ def _check_err(name, err_y, err_s):
 
 
 def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, seed, lstm=None, wavefront=False,
-                        wide=False):
+                        wide=False, wide_tile=None):
     """Same model, same inputs, state carried: a kernel with a flat ring-state
     buffer (stack, convnet) vs its plain version. A stack model with an LSTM
     condition pre-pass takes the pre-pass through K2 on the kernel's side and
@@ -276,13 +279,16 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
     per block. With ``wavefront`` (and stack.WAVEFRONT on) every block must
     launch the wavefront kernel, held against step_plain_wf. Any global mode
     is the caller's. With ``wide`` every block must launch the wrapper's wide
-    kernel, else none may."""
+    kernel, else none may; ``wide_tile`` forces the wide stack kernel's
+    register tile (stack.prepare's ``wide_tile``)."""
     model = nam.load_model(make_nam(arch, config, seed=seed), device="cuda")
     reason = mod.supports(model.config, T, B)
     if reason is not None:
         raise RuntimeError(f"{name}: kernel refuses the config: {reason}")
-    ep, sk = mod.prepare(model.config, model.params, T, B)
+    ep, sk = mod.prepare(model.config, model.params, T, B, **({"wide_tile": wide_tile} if wide_tile else {}))
     layout = ep["layout"]
+    if wide_tile and layout.wide.tile != wide_tile:
+        raise RuntimeError(f"{name}: tile {layout.wide.tile}, {wide_tile} forced")
     step_plain = mod.step_plain_wf if wavefront else mod.step_plain
     wf_before = mod.wf_launches if wavefront else 0
     wide_before = mod.wide_launches
@@ -321,6 +327,8 @@ def compare_ring_kernel(nam, mod, make_nam, arch, name, config, T, B, n_blocks, 
         raise RuntimeError(f"{name}: {mod.wide_launches - wide_before} wide-kernel launches, "
                            f"expected {n_blocks if wide else 0}")
     prepass = f" launches stack {launched[0]}, lstm {launched[1]};" if cstate is not None else ""
+    if getattr(layout, "wide", None) is not None and hasattr(layout.wide, "tile"):
+        prepass += f" tile {layout.wide.tile[0]} x {layout.wide.tile[1]}, {layout.wide.threads} threads, BS {layout.BS};"
     log(f"compare {arch} {name}: T={T} B={B} blocks={n_blocks} wrap={layout.wrap}{prepass} "
         f"max|y_kernel-y_plain|={err_y:.3e} max|state_kernel-state_plain|={err_s:.3e}")
     return _check_err(name, err_y, err_s)
@@ -527,11 +535,16 @@ def cudnn_lstm(model, state_h, state_c):
     return run
 
 
-def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None, plain="step_plain", T=T_MAIN):
+def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None, plain="step_plain", T=T_MAIN,
+               torch_turns=False):
     """Kernel (twice, in turns with the plain version), plain version, torch
     engine tier, bound and, where given, the library call, per batch size.
     A global mode or the wavefront flag is the caller's; ``plain`` names the
-    plain version (step_plain_wf for the wavefront path)."""
+    plain version (step_plain_wf for the wavefront path). With
+    ``torch_turns`` the torch engine tier is the yardstick: it is timed
+    twice, in turns with the kernel at the kernel's iteration count (kernel,
+    tier, plain, plain, tier, kernel), and the kernel / tier ratio is
+    logged."""
     label = path or name
     cfg = model.config
     times = {}
@@ -583,9 +596,13 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
         # kernel), at the kernel's iteration count; the plain version twice.
         k1 = time_per_block(run_kernel)
         l1 = time_per_block(run_library) if lib else None
+        tier = [time_per_block(run_torch)] if torch_turns else []
         p1 = time_per_block(run_plain, n_iter=3, n_warm=1)
-        t1 = time_per_block(run_torch, n_iter=3, n_warm=1)
+        if not torch_turns:
+            tier.append(time_per_block(run_torch, n_iter=3, n_warm=1))
         p2 = time_per_block(run_plain, n_iter=3, n_warm=1)
+        if torch_turns:
+            tier.append(time_per_block(run_torch))
         l2 = time_per_block(run_library) if lib else None
         k2 = time_per_block(run_kernel)
         if lib:
@@ -594,14 +611,17 @@ def time_model(nam, mod, name, model, batches, gen, smi, library=None, path=None
         w = mod.work(cfg, T, Bt)
         b_ms, b_by = bound(w)
         times[Bt] = {
-            "kernel": kernel, "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": t1, "library_ms": lib_ms,
+            "kernel": kernel, "kernel_ms": [k1, k2], "plain_ms": [p1, p2], "torch_tier_ms": tier, "library_ms": lib_ms,
             "library_max_abs_diff": lib_err, "bound_ms": b_ms, "bound_by": b_by,
             "bytes": w["bytes"], "flops": w["flops"],
         }
         lib_txt = (f", library {lib_ms[0]:.4f}/{lib_ms[1]:.4f} ms (|lib - kernel| {lib_err:.2e})"
                    if lib_ms is not None else "")
+        tier_txt = "/".join(f"{t:.4f}" for t in tier)
+        if torch_turns:
+            tier_txt += f" (kernel / tier {k1 / tier[0]:.3f}/{k2 / tier[1]:.3f})"
         log(f"time {label} B={Bt} T={T} ({kernel} kernel): kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-            f"torch tier {t1:.4f} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
+            f"torch tier {tier_txt} ms{lib_txt}, bound {b_ms:.4f} ms ({b_by})  [{smi}]")
         del ep, st, lay, box, teng, tbox
         torch.cuda.empty_cache()
     return times
@@ -990,6 +1010,11 @@ def main() -> int:
         arch, mod = ("ConvNet", convnet) if kname == "convnet_wide_step" else ("WaveNet", stack)
         errs[kname][key] = compare_ring_kernel(nam, mod, make_nam, arch, f"wide {name}", config, T, B, n, SEED + i,
                                                wide=True)
+    # Every register tile of stack_wide.cu (its template instances) on LARGE.
+    for tile in sorted(stack.WIDE_TILES):
+        errs["stack_wide_step"][f"large_tile{tile[0]}x{tile[1]}_T64_B2048"] = compare_ring_kernel(
+            nam, stack, make_nam, "WaveNet", f"wide LARGE tile {tile}", features["large"][1], 64, 2048, 3, SEED,
+            wide=True, wide_tile=tile)
     for i, (key, name, config, T, B, n, expect_tile) in enumerate(wide_lstm_cases):
         kname, tile, errs_key = compare_lstm(nam, lstm, act, make_nam, f"wide {name}", config, T, B, n, SEED + i)
         if kname != "lstm_wide_step" or tile != expect_tile:
@@ -1098,7 +1123,8 @@ def main() -> int:
     for path, (kernel, arch, key, rate, T, full, rem) in WIDE_PATHS.items():
         mod = modules[kernel.replace("_wide", "")]
         report["times"][path] = time_model(nam, mod, kernel, main_models[path], (B_MAIN,), gen, smi, path=path, T=T,
-                                           library=cudnn_lstm if arch == "LSTM" else None)
+                                           library=cudnn_lstm if arch == "LSTM" else None,
+                                           torch_turns=kernel == "stack_wide_step")
     report["realtime_streams"], report["sweep_ms"] = {}, {}
     for path, mod, start, cap in (("stack_step", stack, 4096, 65536), ("lstm_2x16", lstm, 8192, 1 << 20),
                                   ("convnet_step", convnet, 8192, 1 << 18), ("flagship_cond", stack, 1024, 65536),

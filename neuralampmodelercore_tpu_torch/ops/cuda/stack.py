@@ -92,13 +92,18 @@ MAX_T = 512  # one thread per (frame, stream); at most 512 threads per CTA
 MAX_CHANNELS = 32  # register tile; a gated layer's conv has 2 * bottleneck rows
 MAX_IN_CHANNELS = 4  # SMAX in stack.cu: input and condition channels
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
-# The wide kernel (csrc/stack_wide.cu): items of one (frame, stream, slice of
-# WIDE_RW rows), looped over by up to WIDE_THREADS threads.
+# The wide kernel (csrc/stack_wide.cu): weights padded to slices of WIDE_RW
+# rows; its element-wise passes loop items of one (frame, stream, slice of
+# WIDE_RW rows) over its threads.
 WIDE_RW = 16  # RW in stack_wide.cu
 WIDE_MAX_ROWS = 128
 WIDE_MAX_IN = 8  # SW in stack_wide.cu
 WIDE_MAX_T = 1024
 WIDE_THREADS = 512
+# Its layer phases' register tiles, (RT rows, FT columns) a thread: the
+# kernel's instances, each with its most threads (__launch_bounds__).
+WIDE_TILES = {(8, 2): 512, (8, 4): 256}
+WIDE_TILE_REGS = {(8, 2): 128, (8, 4): 255}  # registers a thread of each instance (ptxas, PERF.md)
 
 ACT_PRELU_CHANNELS = 11  # PReLU with one slope per channel (stack.cu's own activation code)
 GATING_CODES = {"none": 0, "gated": 1, "blended": 2}
@@ -485,11 +490,18 @@ def _wide_seg_max(nets) -> int:
                 for cfg in nets for ac in cfg.layer_arrays for li in range(ac.num_layers)), default=4)
 
 
-def _wide_smem_bytes(nets, T: int, BS: int, staged: bool = False) -> int:
-    """Three (rows, T, BS) buffers, the condition's and conv_pre_film's, and
-    with ``staged`` a layer's weight segment."""
+def _wide_tap_floats(nets, T: int, BS: int) -> int:
+    """Floats of the wide kernel's staged taps: a layer's (K-1) C T BS at the most."""
+    return max(((ac.kernel_sizes[li] - 1) * ac.channels * T * BS
+                for cfg in nets for ac in cfg.layer_arrays for li in range(ac.num_layers)), default=0)
+
+
+def _wide_smem_bytes(nets, T: int, BS: int, staged: bool = False, taps: bool = False) -> int:
+    """Three (rows, T, BS) buffers, the condition's and conv_pre_film's, with
+    ``staged`` a layer's weight segment and with ``taps`` its staged taps."""
     rows, srows, film_pre = _wide_sizes(nets)
-    return 4 * (T * BS * ((4 if film_pre else 3) * rows + srows) + (_wide_seg_max(nets) if staged else 0))
+    return 4 * (T * BS * ((4 if film_pre else 3) * rows + srows) + (_wide_seg_max(nets) if staged else 0)
+                + (_wide_tap_floats(nets, T, BS) if taps else 0))
 
 
 def wide_fit(T: int, rows: int, smem_bytes) -> Tuple[int, bool]:
@@ -508,9 +520,82 @@ def wide_fit(T: int, rows: int, smem_bytes) -> Tuple[int, bool]:
     return 0, False
 
 
-def _wide_launch(nets, T: int) -> Tuple[int, bool]:
-    """``wide_fit`` of the nets the launch runs."""
-    return wide_fit(T, _wide_sizes(nets)[0], lambda BS, staged: _wide_smem_bytes(nets, T, BS, staged))
+def _wide_launch(nets, T: int) -> Tuple[int, bool, bool]:
+    """(streams per CTA, whether the weights and whether the taps are staged
+    in shared memory) of the wide stack kernel: ``wide_fit``'s streams and
+    weights (enough items of WIDE_RW rows for WIDE_THREADS threads, the
+    weights staged where they fit beside one stream's buffers), then the
+    taps staged where they fit too; (0, False, False) if one stream's
+    buffers do not fit. The ConvNet's wide kernel keeps ``wide_fit``."""
+    rows = _wide_sizes(nets)[0]
+    for staged in (True, False):
+        BS = max(1, WIDE_THREADS // (T * (rows // WIDE_RW)))
+        while BS:
+            for taps in (True, False):
+                if _wide_smem_bytes(nets, T, BS, staged, taps) <= SMEM_LIMIT:
+                    return BS, staged, taps
+            BS -= 1
+    return 0, False, False
+
+
+def _wide_slices(ac, li: int, RT: int) -> Tuple[int, int, int]:
+    """Slices of RT rows that layer li's phases F, A and B compute in the
+    wide kernel (``phases`` in stack_wide.cu): F the layer input's rows (0
+    without conv_pre_film); A the conv's real rows (a gated slice holds RT/2
+    rows of each half) and the input's rows for the ring; B the rows of
+    layer1x1's output (the channels) and of the head's (head_output_size)."""
+    from ...models.wavenet import NONE, layer_film_spec
+
+    C, bn = ac.channels, ac.bottleneck
+    n_c = -(-C // RT)
+    f = n_c if layer_film_spec(ac, li, "conv_pre_film") is not None else 0
+    a = max(-(-bn // (RT // 2 if ac.gating_modes[li] != NONE else RT)), n_c)
+    b = -(-max(C if ac.layer1x1_active else 0, ac.head_output_size) // RT)
+    return f, a, b
+
+
+def _wide_items(n_slices: int, TBS: int, FT: int) -> int:
+    """Items (a thread's slice and FT columns) of a phase of n_slices slices
+    over TBS columns: a warp takes one slice and 32 FT columns
+    (``phase_map``)."""
+    return -(-TBS // (32 * FT)) * n_slices * 32
+
+
+def _wide_threads(nets, T: int, BS: int, tile: Tuple[int, int]) -> int:
+    """Threads of the wide kernel's CTA: the most items a layer phase has,
+    at most the tile instance's threads."""
+    RT, FT = tile
+    items = max((_wide_items(n, T * BS, FT) for cfg in nets for ac in cfg.layer_arrays
+                 for li in range(ac.num_layers) for n in _wide_slices(ac, li, RT) if n), default=32)
+    return min(WIDE_TILES[tile], items)
+
+
+SM_SMEM, SM_THREADS, SM_REGS = 233472, 2048, 65536  # one Hopper SM; a CTA also takes 1 KB of shared memory
+
+
+def wide_ctas_per_sm(layout: "Layout") -> int:
+    """CTAs of the wide kernel one SM holds at once: bound by shared memory,
+    threads and registers (the instance's, ``WIDE_TILE_REGS``, allocated in
+    256 a warp). ``wide_ctas_per_sm_runtime`` asks the CUDA runtime."""
+    wd = layout.wide
+    warps = -(-wd.threads // 32)
+    regs_warp = -(-WIDE_TILE_REGS[wd.tile] * 32 // 256) * 256
+    return min(SM_SMEM // (layout.smem_bytes + 1024), SM_THREADS // (32 * warps), SM_REGS // (regs_warp * warps))
+
+
+def wide_ctas_per_sm_runtime(layout: "Layout") -> int:
+    """The CUDA runtime's count of the layout's wide-kernel CTAs an SM holds (on the card)."""
+    wd = layout.wide
+    return WIDE_LIB.load().nam_stack_wide_ctas_per_sm(*wd.tile, wd.threads, layout.smem_bytes)
+
+
+def _wide_tile(taps: bool) -> Tuple[int, int]:
+    """The register tile the wrapper picks for the wide kernel: 8 x 2 (16
+    warps at 128 columns) where the taps are staged and the conv reads only
+    shared memory, else 8 x 4 (each tap where it lies: more loads in flight
+    a thread), as ``tools/stack_wide_tiles.py`` measured on LARGE, gated
+    MEDIUM and the flagship at T = 1,024, whose taps do not fit (PERF.md)."""
+    return (8, 2) if taps else (8, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -556,6 +641,7 @@ class ArrayLayout:
     first: int  # global index of the first layer
     layers: Tuple[LayerLayout, ...]
     hr: TailLayout
+    BN: int  # bottleneck: the activation rows of every layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -586,6 +672,8 @@ class WideLayout:
     film_pre: bool  # a conv_pre_film buffer
     threads: int
     seg_max: int  # floats of the staged weight segment; 0: the weights are read from device memory
+    tile: Tuple[int, int]  # (RT rows, FT columns) a thread in the layer phases: the kernel instance
+    tap_max: int  # floats of the staged taps ((K-1) C T BS at the most); 0: taps are read where they lie
 
 
 @dataclasses.dataclass(frozen=True)
@@ -720,9 +808,11 @@ def _layer_parts(ac, li: int, lp: Dict, CP: int, SW: int):
     return parts, act1, act2, tuple(shifts)
 
 
-def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
+def _build_layout(cfg, params, T: int, batch: int,
+                  wide_tile: Optional[Tuple[int, int]] = None) -> Tuple[Layout, np.ndarray]:
     """Pack every weight into one flat float32 array (each part 16-byte
-    aligned) and assign ring offsets in the flat state buffer."""
+    aligned) and assign ring offsets in the flat state buffer. ``wide_tile``
+    forces the wide kernel's register tile (else ``_wide_tile`` picks it)."""
     from ...models.wavenet import head_conv_specs
 
     chunks: List[np.ndarray] = []
@@ -797,7 +887,7 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
             hr = tail(ap["head_rechannel"], ac.head_kernel_size, ac.head_dilation, ac.head_output_size, ac.head_size)
             arrays.append(ArrayLayout(
                 C=C, CP=CP, I=ac.input_size, HI=ac.head_output_size, HS=ac.head_size, rech=rech,
-                first=n_layers, layers=tuple(layers), hr=hr,
+                first=n_layers, layers=tuple(layers), hr=hr, BN=ac.bottleneck,
             ))
             n_layers += len(layers)
         head_scale = put(np.asarray([float(_np(nparams["head_scale"]))], np.float32))
@@ -813,14 +903,18 @@ def _build_layout(cfg, params, T: int, batch: int) -> Tuple[Layout, np.ndarray]:
     seg_max = max(lp.seg_len for n in nets for a in n.arrays for lp in a.layers) if n_layers else 4
     if wide:
         rows, srows, film_pre = _wide_sizes(net_cfgs)
-        BS, staged = _wide_launch(net_cfgs, T)
-        items = T * BS * (rows // WIDE_RW)
+        BS, staged, taps = _wide_launch(net_cfgs, T)
+        tile = wide_tile or _wide_tile(taps)
+        if tile not in WIDE_TILES:
+            raise ValueError(f"wide_tile {tile}: the wide kernel's tiles are {sorted(WIDE_TILES)}")
         layout = Layout(
             T=T, B=batch, BS=BS, Cin=cfg.in_channels, Cout=cfg.out_channels_, S_ext=S_ext, c_max=WIDE_RW,
-            seg_max=seg_max, state_size=state_size, wrap=wrap, smem_bytes=_wide_smem_bytes(net_cfgs, T, BS, staged),
+            seg_max=seg_max, state_size=state_size, wrap=wrap,
+            smem_bytes=_wide_smem_bytes(net_cfgs, T, BS, staged, taps),
             nets=tuple(nets), modes=act.modes(), wf=None,
-            wide=WideLayout(rows=rows, srows=srows, film_pre=film_pre, threads=min(WIDE_THREADS, -(-items // 32) * 32),
-                            seg_max=seg_max if staged else 0),
+            wide=WideLayout(rows=rows, srows=srows, film_pre=film_pre, threads=_wide_threads(net_cfgs, T, BS, tile),
+                            seg_max=seg_max if staged else 0, tile=tile,
+                            tap_max=_wide_tap_floats(net_cfgs, T, BS) if taps else 0),
         )
         return layout, np.concatenate(chunks)
     widths = [cfg.in_channels, S_ext] + [n.S for n in nets]
@@ -860,7 +954,7 @@ def _pack_plan(layout: Layout) -> np.ndarray:
         at += NF
         first_array += len(net.arrays)
     for a in arrays:
-        plan[at : at + 9] = [a.C, a.CP, a.I, a.HI, a.HS, a.rech, a.first, len(a.layers), tail_index[id(a.hr)]]
+        plan[at : at + AF] = [a.C, a.CP, a.I, a.HI, a.HS, a.rech, a.first, len(a.layers), tail_index[id(a.hr)], a.BN]
         at += AF
     for t in tails:
         plan[at : at + TF] = [t.K, t.d, t.cin, t.cout, t.w, t.b, t.M, t.ring, t.act, t.prm]
@@ -944,13 +1038,16 @@ def _prepass_fns(sub_cfg, T: int, batch: int, device: torch.device):
     return registry.engine_fns(registry.arch_for_config(sub_cfg))
 
 
-def prepare(cfg, params, T: int, batch: int):
-    """Packed weights, plan and zero state on the params' device."""
+def prepare(cfg, params, T: int, batch: int, wide_tile: Optional[Tuple[int, int]] = None):
+    """Packed weights, plan and zero state on the params' device.
+    ``wide_tile`` (RT, FT) forces the wide kernel's register tile, for tests
+    and measurements (it must be one of WIDE_TILES); it is ignored where
+    csrc/stack.cu runs the model."""
     reason = supports(cfg, T, batch)
     if reason is not None:
         raise ValueError(f"fused stack kernel does not support this config: {reason}")
     device = params["head_scale"].device
-    layout, flat = _build_layout(cfg, params, T, batch)
+    layout, flat = _build_layout(cfg, params, T, batch, wide_tile)
     eparams = {
         "layout": layout,
         "weights": torch.tensor(flat, device=device),
@@ -1158,8 +1255,10 @@ def _bind_wf(lib: ctypes.CDLL) -> None:
 
 
 def _bind_wide(lib: ctypes.CDLL) -> None:
-    lib.nam_stack_wide_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    lib.nam_stack_wide_step.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     lib.nam_stack_wide_step.restype = ctypes.c_int
+    lib.nam_stack_wide_ctas_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.nam_stack_wide_ctas_per_sm.restype = ctypes.c_int
 
 
 #: csrc/stack.cu, built by nvcc at first launch (``LIB.build_log``: ptxas's report).
@@ -1203,8 +1302,8 @@ def launch(layout: Layout, weights: torch.Tensor, plan: torch.Tensor, buf: torch
         LIB.check(lib.nam_stack_step(*args, layout.c_max, layout.smem_bytes, stream), "stack kernel")
     else:
         lib = WIDE_LIB.load()
-        err = lib.nam_stack_wide_step(*args, wd.rows, wd.srows, int(wd.film_pre), wd.seg_max, wd.threads,
-                                      layout.smem_bytes, stream)
+        err = lib.nam_stack_wide_step(*args, wd.rows, wd.srows, int(wd.film_pre), wd.seg_max, wd.tap_max,
+                                      wd.threads, layout.smem_bytes, *wd.tile, stream)
         WIDE_LIB.check(err, "stack wide kernel")
         wide_launches += 1
     launches += 1

@@ -1,6 +1,7 @@
 """Time one kernel of several checkouts on one card, in turns.
 
-    python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] [--config flagship]
+    python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] [--config flagship] \
+        [--T 64] [--batch 2048]
     python3 -m neuralampmodelercore_tpu_torch.tools.kernel_ab TREE [TREE ...] --tool microbench_dots \
         [--case "packed G=8 f32" ...]
 
@@ -16,8 +17,12 @@ started together, each into the tree's own build/kernels/), then each
 measurement runs in its own process with that tree first on sys.path, in the
 order A, B, ..., B, A, so that a drift of the card shows as a difference
 between the two turns of a tree. A measurement is the kernel's time per block
-at the main paths' shape, B=2048 and T=64, from CUDA events over 20 calls
-after 3 warm-up calls, state carried; a tree whose kernel refuses the config
+at ``--batch`` streams and blocks of ``--T`` frames (the main paths' shape,
+B=2048 and T=64, unless given), from CUDA events over 20 calls after 3
+warm-up calls, state carried from zero on the same input in every tree;
+after the timed calls it prints the SHA-256 of the last block's output and
+of the carried state, so that equal hashes across trees show a kernel's
+outputs and state equal bit for bit. A tree whose kernel refuses the config
 is skipped. A variant of a kernel is a
 copy of the tree with its source edited (for example ``#pragma unroll 2``
 before the unit loop of ``csrc/lstm.cu``). Prints the card's name and power
@@ -42,24 +47,30 @@ import sys
 from pathlib import Path
 
 KERNELS = {"WaveNet": "stack", "LSTM": "lstm", "ConvNet": "convnet"}
-B, T = 2048, 64
 
 WORKER = r"""
-import importlib, json, sys, time
+import hashlib, importlib, json, sys, time
 tree, kernel, doc_path, B, T, mode, modes = sys.argv[1:8]
 B, T = int(B), int(T)
 sys.path.insert(0, tree)
 import torch
 import neuralampmodelercore_tpu_torch as nam
 mod = importlib.import_module("neuralampmodelercore_tpu_torch.ops.cuda." + kernel)
+fast, luts, wavefront = json.loads(modes)
 if mode == "build":
+    # The wide kernel alone where the stack or ConvNet wrapper sends the
+    # config there (stack.cu takes minutes in nvcc), else every source.
     t0 = time.perf_counter()
-    for lib in (mod.LIB, getattr(mod, "WF_LIB", None), getattr(mod, "WIDE_LIB", None)):
+    libs = (mod.LIB, getattr(mod, "WF_LIB", None), getattr(mod, "WIDE_LIB", None))
+    if kernel != "lstm" and not wavefront and mod._is_wide(nam.load_model(json.load(open(doc_path)), device="cpu").config, T):
+        libs = (mod.WIDE_LIB,)
+    for lib in libs:
         if lib is not None:
             lib.compile()
-    print(json.dumps({"build_s": time.perf_counter() - t0}))
+    print(json.dumps({"build_s": time.perf_counter() - t0, "ptxas": [
+        line.strip() for lib in libs if lib is not None for line in lib.build_log.splitlines()
+        if "registers" in line or "spill" in line or "Compiling entry" in line]}))
     sys.exit(0)
-fast, luts, wavefront = json.loads(modes)
 if fast:
     nam.activations.enable_fast_tanh()
 for lut in luts:
@@ -79,7 +90,7 @@ gen = torch.Generator("cuda").manual_seed(0)
 x = torch.randn((model.num_input_channels, T, B), device="cuda", generator=gen) * 0.3
 box = {"s": st}
 def run():
-    _, box["s"] = mod.step(model.config, T, ep, box["s"], x)
+    box["y"], box["s"] = mod.step(model.config, T, ep, box["s"], x)
 for _ in range(3):
     run()
 torch.cuda.synchronize()
@@ -89,7 +100,18 @@ for _ in range(20):
     run()
 b.record()
 torch.cuda.synchronize()
-print(json.dumps({"ms": a.elapsed_time(b) / 20}))
+def tensors(s):  # the state's tensors in key order (a pre-pass's own state nested)
+    for k in sorted(s):
+        v = s[k]
+        if torch.is_tensor(v):
+            yield v
+        elif isinstance(v, dict):
+            yield from tensors(v)
+h = hashlib.sha256()
+for t in tensors(box["s"]):
+    h.update(t.detach().cpu().numpy().tobytes())
+print(json.dumps({"ms": a.elapsed_time(b) / 20, "y_sha256": hashlib.sha256(box["y"].cpu().numpy().tobytes()).hexdigest(),
+                  "state_sha256": h.hexdigest()}))
 """
 
 
@@ -120,7 +142,7 @@ print(json.dumps(out))
 """
 
 
-def _worker(tree: str, kernel: str, doc: str, mode: str, modes: str) -> dict:
+def _worker(tree: str, kernel: str, doc: str, mode: str, modes: str, B: int, T: int) -> dict:
     return _run([WORKER, tree, kernel, doc, str(B), str(T), mode, modes], f"{tree} ({mode})")
 
 
@@ -161,6 +183,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--config", default="flagship", help="a config name of tools/agreement.py")
+    ap.add_argument("--T", type=int, default=64, help="frames a block (default 64)")
+    ap.add_argument("--batch", type=int, default=2048, help="streams (default 2048)")
     ap.add_argument("--tool", choices=("microbench_dots",), help="time the tool's kernel instead of a config's")
     ap.add_argument("--case", action="append", help="with --tool: a case of the tool (repeatable)")
     args = ap.parse_args(argv)
@@ -196,20 +220,27 @@ def main(argv=None) -> int:
     doc.write_text(json.dumps(make_nam(arch, config, seed=seed)))
     try:
         with ThreadPoolExecutor(len(trees)) as ex:
-            builds = list(ex.map(lambda t: _worker(t, kernel, str(doc), "build", modes), trees))
+            builds = list(ex.map(lambda t: _worker(t, kernel, str(doc), "build", modes, args.batch, args.T), trees))
         for tree, b in zip(trees, builds):
             print(f"build {kernel} {tree}: {b['build_s']:.1f} s", flush=True)
-        times = {t: [] for t in trees}
+            for line in b["ptxas"]:
+                print(f"  ptxas {line}", flush=True)
+        runs = {t: [] for t in trees}
         for tree in trees + trees[::-1]:
-            res = _worker(tree, kernel, str(doc), "time", modes)
+            res = _worker(tree, kernel, str(doc), "time", modes, args.batch, args.T)
             if "refused" in res:
                 print(f"{tree}: {kernel} refuses {args.config}: {res['refused']}", flush=True)
                 continue
-            times[tree].append(res["ms"])
-        for tree, ms in times.items():
-            if ms:
-                print(f"{tree}: {kernel} {args.config} B={B} T={T}: "
-                      + ", ".join(f"{1e3 * m:.1f}" for m in ms) + f" us/block  [{smi}]", flush=True)
+            runs[tree].append(res)
+        for tree, rs in runs.items():
+            if rs:
+                print(f"{tree}: {kernel} {args.config} B={args.batch} T={args.T}: "
+                      + ", ".join(f"{1e3 * r['ms']:.1f}" for r in rs) + f" us/block, output sha256 "
+                      f"{rs[0]['y_sha256'][:16]}, state sha256 {rs[0]['state_sha256'][:16]}  [{smi}]", flush=True)
+        hashes = {(r["y_sha256"], r["state_sha256"]) for rs in runs.values() for r in rs}
+        if hashes:
+            print(f"{kernel} {args.config}: outputs and state "
+                  f"{'equal bit for bit in every tree' if len(hashes) == 1 else 'DIFFER'}", flush=True)
     finally:
         doc.unlink()
     return 0

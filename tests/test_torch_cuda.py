@@ -30,7 +30,7 @@ from neuralampmodelercore_tpu_torch.ops.cuda import stack as tstack
 from neuralampmodelercore_tpu_torch.tools import agreement
 from neuralampmodelercore_tpu_torch.tools import microbench_dots as tmbd
 from neuralampmodelercore_tpu_torch.tools import proto_ring_kernel as tprk
-from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset
+from neuralampmodelercore_tpu_torch.tools.generate import make_nam, wavenet_preset, with_condition_dsp
 
 ATOL = 2e-5
 
@@ -395,6 +395,23 @@ WIDE_CASES = {
     "stack_flagship_T1024": ("WaveNet", wavenet_preset("standard"), 1024, 64),
     "stack_in8": ("WaveNet", {"in_channels": 8, "layers": [agreement.small_layer(input_size=8, condition_size=8)],
                               "head": None}, 16, 300),
+    # Each of these ends on a ragged column tile (T BS not a multiple of a warp's columns) and,
+    # but for T = 600, a ragged last CTA (B not a multiple of BS).
+    "stack_ragged_B1000_T1": ("WaveNet", {"layers": [agreement.small_layer(channels=48, head_size=1)], "head": None},
+                              1, 1000),
+    "stack_flagship_T600": ("WaveNet", wavenet_preset("standard"), 600, 300),
+    "stack_rows33": ("WaveNet", {"layers": [agreement.small_layer(channels=33, head_size=1, dilations=[1, 4, 128])],
+                                 "head": None}, 20, 999),
+    "stack_gated_head1x1": ("WaveNet", {"layers": [agreement.small_layer(
+        channels=32, bottleneck=24, gated=True, dilations=[1, 8, 100],
+        head1x1={"active": True, "out_channels": 6, "groups": 1})], "head": None}, 20, 999),
+    "stack_conv_pre_film": ("WaveNet", {"layers": [agreement.small_layer(
+        channels=36, dilations=[1, 8, 100], conv_pre_film=agreement.film(),
+        conv_post_film=agreement.film(False))], "head": None}, 20, 999),
+    "stack_condition_chain": ("WaveNet", with_condition_dsp(
+        {"layers": [agreement.small_layer(channels=8, head_size=1)], "head": None},
+        make_nam("WaveNet", {"layers": [agreement.small_layer(channels=40, head_size=1)], "head": None}, seed=3)),
+        20, 999),
     "lstm_48x2": ("LSTM", {"input_size": 1, "hidden_size": 48, "num_layers": 2}, 34, 300),
     "lstm_8x5": ("LSTM", {"input_size": 1, "hidden_size": 8, "num_layers": 5}, 64, 300),
     "convnet_64": ("ConvNet", {"channels": 64, "dilations": [1, 2, 4, 8, 128], "batchnorm": True,
@@ -429,6 +446,99 @@ def test_wide_kernels_match_plain_versions(name):
         for k, v in ref.items():
             torch.testing.assert_close(sk[k], v, rtol=0, atol=ATOL)
     assert mod.wide_launches == before + 4
+
+
+def _wide_stack(config, T, B, tile=None):
+    tm = tnam.load_model(make_nam("WaveNet", config, seed=2))
+    assert tstack.supports(tm.config, T, B) is None
+    ep, sk = tstack.prepare(tm.config, tm.params, T, B, **({"wide_tile": tile} if tile else {}))
+    assert ep["layout"].wide is not None
+    return tm, ep, sk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", sorted(tstack.WIDE_TILES))
+def test_stack_wide_every_tile_on_large(tile):
+    """Each register tile of csrc/stack_wide.cu (a template instance)
+    forced on the LARGE WaveNet at B = 256: within 2e-5 of step_plain over 4
+    blocks with state carried, one launch of the wide kernel per block."""
+    _cuda_or_skip()
+    tm, ep, sk = _wide_stack(wavenet_preset("large"), 64, 256, tile)
+    assert ep["layout"].wide.tile == tile
+    buf = sk["buf"].clone()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    before = (tstack.launches, tstack.wide_launches)
+    for _ in range(4):
+        x = torch.randn((1, 64, 256), generator=gen, device="cuda") * 0.3
+        yp = tstack.step_plain(ep["layout"], ep["weights"], buf, x, sk["n"] % ep["layout"].wrap)
+        yk, sk = tstack.step(tm.config, 64, ep, sk, x)
+        torch.testing.assert_close(yk, yp, rtol=0, atol=ATOL)
+        torch.testing.assert_close(sk["buf"], buf, rtol=0, atol=ATOL)
+    assert (tstack.launches, tstack.wide_launches) == (before[0] + 4, before[1] + 4)
+
+
+GUARD_CASES = {
+    "large_B256": (wavenet_preset("large"), 64, 256),
+    "ragged_B1000_T1": ({"layers": [agreement.small_layer(channels=48, head_size=1)], "head": None}, 1, 1000),
+    "flagship_T1024_B64": (wavenet_preset("standard"), 1024, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GUARD_CASES))
+def test_stack_wide_writes_nothing_past_the_output_or_the_state(name):
+    """The wide stack kernel launched on an output and a state that sit
+    between guard bands of a sentinel: over 3 blocks the bands stay as they
+    were, and the output and state are those of the wrapper's launch bit
+    for bit."""
+    _cuda_or_skip()
+    config, T, B = GUARD_CASES[name]
+    tm, ep, sk = _wide_stack(config, T, B)
+    lay, wd = ep["layout"], ep["layout"].wide
+    G, SENT = 4096, 12345.0
+    n_state, n_y = sk["buf"].numel(), lay.Cout * T * B
+    state = torch.full((n_state + 2 * G,), SENT, device="cuda")
+    state[G : G + n_state] = sk["buf"]
+    y = torch.full((n_y + 2 * G,), SENT, device="cuda")
+    lib = tstack.WIDE_LIB.load()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for _ in range(3):
+        x = torch.randn((tm.config.in_channels, T, B), generator=gen, device="cuda") * 0.3
+        n = sk["n"] % lay.wrap
+        yk, sk = tstack.step(tm.config, T, ep, sk, x)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.nam_stack_wide_step(
+            x.data_ptr(), None, y.data_ptr() + 4 * G, state.data_ptr() + 4 * G, ep["weights"].data_ptr(),
+            ep["plan"].data_ptr(), T, B, n, lay.BS, wd.rows, wd.srows, int(wd.film_pre), wd.seg_max, wd.tap_max,
+            wd.threads, lay.smem_bytes, *wd.tile, stream)
+        assert err == 0
+        torch.cuda.synchronize()
+        assert torch.equal(y[G : G + n_y].view_as(yk), yk)
+        assert torch.equal(state[G : G + n_state], sk["buf"])
+        for band in (y[:G], y[G + n_y :], state[:G], state[G + n_state :]):
+            assert bool((band == SENT).all())
+
+
+OCCUPANCY_CASES = {
+    "large": (wavenet_preset("large"), 64),
+    "medium_gated": (agreement.medium_gated(), 64),
+    "flagship_T1024": (wavenet_preset("standard"), 1024),
+    "rows33": ({"layers": [agreement.small_layer(channels=33, head_size=1)], "head": None}, 64),
+    "rows128": ({"layers": [agreement.small_layer(channels=128, head_size=1)], "head": None}, 64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(OCCUPANCY_CASES))
+def test_stack_wide_geometry_matches_the_runtime(name):
+    """The Python mirror of the wide stack kernel's occupancy holds at every
+    tile: the CUDA runtime puts as many CTAs on an SM as
+    ``wide_ctas_per_sm`` says (shared memory, threads, registers)."""
+    _cuda_or_skip()
+    config, T = OCCUPANCY_CASES[name]
+    for tile in sorted(tstack.WIDE_TILES):
+        lay = _wide_stack(config, T, 2, tile)[1]["layout"]
+        assert tstack.wide_ctas_per_sm_runtime(lay) == tstack.wide_ctas_per_sm(lay), (name, tile)
 
 
 # The tile kernel of csrc/lstm_wide.cu: (config, T, B, fast-tanh mode).

@@ -397,3 +397,100 @@ def test_lstm_tiles_tool_needs_a_card(monkeypatch, capsys):
     assert lstm_tiles.main(["--sources", "16x2", "--batch", "65536"]) == 2
     captured = capsys.readouterr()
     assert captured.out == "" and captured.err.count("needs a CUDA card") == 2
+
+
+# csrc/stack_wide.cu's launch geometry, as ops/cuda/stack.py mirrors it. Per
+# config: (config, T, buffer rows, streams a CTA (BS), shared bytes, the tile
+# the wrapper picks, threads at that tile, CTAs an SM, the slices (F, A, B)
+# of RT = 8 rows each array's first layer computes). Shared bytes are
+# 4 * (T BS (3 rows + 1 condition row) + the staged segment + the staged taps
+# (K-1) C T BS), each staged where it fits; CTAs an SM 233,472 //
+# (bytes + 1,024) where shared memory binds. The pick is 8 x 2 where the
+# taps are staged, else 8 x 4; a warp takes one slice and 32 FT columns.
+WIDE_GEOMETRY = {
+    # 64 then 32 channels; segment 3*64*64 + 64 + 64 + 64*64 + 64 + 2*64 = 16,704 floats,
+    # taps 2*64*128 = 16,384: 4 * (64*2*193 + 16,704 + 16,384) = 231,168. A and B:
+    # 64 rows = 8 slices x 2 warps of 64 columns = 16 warps.
+    "large": (LARGE, 64, 64, 2, 231168, (8, 2), 512, 1, [(0, 8, 8), (0, 4, 4)]),
+    # Gated 2 x 32 conv rows (CP 64): segment 3*32*64 + 64 + 64 + 64*64 + 64 + 2*64 = 10,560,
+    # taps 2*32*128 = 8,192: 4 * (64*2*193 + 10,560 + 8,192) = 173,824. A: 32 activation
+    # rows = 8 gated slices of 4 + 4; B: max(32 channels, 32 head rows) = 4 slices, not
+    # CP = 64's 8.
+    "medium_gated": (MEDIUM_GATED, 64, 64, 2, 173824, (8, 2), 512, 1, [(0, 8, 4), (0, 4, 2)]),
+    # 16 then 8 channels (both padded to 16 rows): one stream, 1,024 columns;
+    # segment 3*16*16 + 16 + 16 + 16*16 + 16 + 2*16 = 1,104; 4 * (1024*49 + 1,104) =
+    # 205,120, no room for the 32,768 floats of taps, so 8 x 4. The 8-channel array runs
+    # one slice of 8 rows, not a 16-row slice half padding. A of array 0: 2 slices x 8
+    # warps of 128 columns, on the instance's 256 threads.
+    "flagship_T1024": (FLAGSHIP, 1024, 16, 1, 205120, (8, 4), 256, 1, [(0, 2, 2), (0, 1, 1)]),
+    # 33 channels: 48 rows; segment 3*33*48 + 48 + 48 + 48*48 + 48 + 2*48 = 7,296, taps
+    # 2*33*128 = 8,448: 4 * (64*2*145 + 7,296 + 8,448) = 137,216. 5 slices x 2 warps.
+    "rows33": ({"layers": [_layer(channels=33)], "head": None}, 64, 48, 2, 137216, (8, 2), 320, 1, [(0, 5, 5)]),
+    # 128 channels: the 66,176-float segment does not fit beside one stream's
+    # buffers, so it is read from device memory; the taps fit:
+    # 4 * (64*1*385 + 2*128*64) = 164,096. 16 slices over 64 columns = 16 warps.
+    "rows128": ({"layers": [_layer(channels=128)], "head": None}, 64, 128, 1, 164096, (8, 2), 512, 1, [(0, 16, 16)]),
+}
+
+
+def _wide_stack_layout(config, T, tile=None):
+    tm = tnam.load_model(make_nam("WaveNet", config, seed=0), device="cpu")
+    return tm, tstack.prepare(tm.config, tm.params, T, BATCH, **({"wide_tile": tile} if tile else {}))[0]["layout"]
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_GEOMETRY))
+def test_stack_wide_geometry(name):
+    """Buffers, streams a CTA, shared bytes, the tile the wrapper picks, its
+    threads, CTAs an SM and each phase's slices and items of the wide stack
+    kernel against the values worked out by hand (above)."""
+    config, T, rows, BS, smem, tile, threads, ctas, slices = WIDE_GEOMETRY[name]
+    tm, lay = _wide_stack_layout(config, T)
+    wd = lay.wide
+    assert (wd.rows, lay.BS, lay.smem_bytes, wd.tile, wd.threads) == (rows, BS, smem, tile, threads)
+    assert (wd.tap_max > 0) == (tile == (8, 2))
+    assert tstack.wide_ctas_per_sm(lay) == ctas
+    arrays = tm.config.layer_arrays
+    assert [tstack._wide_slices(ac, 0, 8) for ac in arrays] == slices
+    # A warp takes one slice and 32 FT columns.
+    for ac in arrays:
+        for n in tstack._wide_slices(ac, 0, 8)[1:]:
+            assert tstack._wide_items(n, T * BS, tile[1]) == -(-T * BS // (32 * tile[1])) * n * 32
+    assert wd.threads == min(tstack.WIDE_TILES[tile], max(
+        tstack._wide_items(n, T * BS, tile[1]) for ac in arrays for n in tstack._wide_slices(ac, 0, 8) if n))
+
+
+def test_stack_wide_gated_phase_b_takes_the_channels_not_the_padded_rows():
+    """Gated MEDIUM's first array pads its conv to CP = 64 rows; phase B
+    produces only layer1x1's 32 channels and the head's 32 rows: 4 slices of
+    8 (not CP = 64's 8 of which half were thrown away), and both A and B
+    sum over the 32 activation rows."""
+    tm, lay = _wide_stack_layout(MEDIUM_GATED, 64)
+    ac, a = tm.config.layer_arrays[0], lay.arrays[0]
+    assert (a.CP, a.C, a.BN, a.HI) == (64, 32, 32, 32)
+    assert tstack._wide_slices(ac, 0, 8)[2] * 8 == a.C < a.CP
+    plan = tstack._pack_plan(lay)
+    first = tstack.P_HEADER + tstack.NF * len(lay.nets)
+    assert plan[first + 9] == a.BN  # the kernel's A_BN field
+
+
+@pytest.mark.parametrize("tile", sorted(tstack.WIDE_TILES))
+def test_stack_wide_tile_forced(tile):
+    """``prepare(..., wide_tile=...)`` forces each instance; its threads stay
+    within the instance's; an unknown tile raises."""
+    _, lay = _wide_stack_layout(LARGE, 64, tile)
+    assert lay.wide.tile == tile and lay.wide.threads <= tstack.WIDE_TILES[tile]
+    assert lay.wide.threads == min(tstack.WIDE_TILES[tile], tstack._wide_items(8, 128, tile[1]))
+    with pytest.raises(ValueError, match="tiles are"):
+        _wide_stack_layout(LARGE, 64, (8, 8))
+
+
+def test_convnet_wide_layout_unchanged():
+    """The ConvNet's wide kernel shares WIDE_RW, WIDE_THREADS and wide_fit
+    with the stack wrapper; the stack kernel's new geometry leaves its
+    layout alone: 64 channels at T = 64 take BS = 2, 512 threads and
+    4 * (2 * 64*64*2 + 8,320) = 98,816 bytes; per-channel PReLU at 16
+    channels BS = 8, 512 threads and 4 * (2 * 16*64*8 + 544) = 67,712."""
+    for config, BS, threads, smem in ((_convnet(64), 2, 512, 98816), (PRELU_CH, 8, 512, 67712)):
+        tm = tnam.load_model(make_nam("ConvNet", config, seed=0), device="cpu")
+        lay = tconv.prepare(tm.config, tm.params, 64, 2048)[0]["layout"]
+        assert (lay.BS, lay.wide_threads, lay.smem_bytes) == (BS, threads, smem)
